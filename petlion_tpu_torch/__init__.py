@@ -1,0 +1,23 @@
+"""petlion_tpu_torch — the PyTorch/CUDA port of the JAX P2D battery
+simulation package that sits beside it as its reference.
+
+Same module names as the JAX package; batch-first tensors throughout, with
+the Gauss-Jordan inverse of the main path as a CUDA kernel
+(`ops/gj_kernel.py`, `csrc/gj_inverse.cu`). Entry points run on CUDA unless
+the caller passes ``device="cpu"``.
+"""
+
+from .chemistry import LCO
+from .config import (Bounds, Discretizations, EXIT_REASONS, Numerics,
+                     SimOptions)
+from .convert import model_from_numpy
+from .layout import StateLayout
+from .parallel.batch import batch_simulate
+from .physics.residuals import ModelConfig, calc_I1C, residual_core
+from .sim import Model, petlion
+
+__all__ = [
+    "LCO", "Bounds", "Discretizations", "EXIT_REASONS", "Numerics",
+    "SimOptions", "model_from_numpy", "StateLayout", "batch_simulate",
+    "ModelConfig", "calc_I1C", "residual_core", "Model", "petlion",
+]

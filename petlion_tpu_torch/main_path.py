@@ -1,0 +1,127 @@
+"""The port's main path, defined once, and where its time goes on the card.
+
+The main path is the program of the JAX package's ``bench.py:make_runner``:
+``B_MAIN`` = 1024 LCO cells, isothermal, Fickian finite-difference radial
+diffusion, the default mesh, a 1C discharge from SOC 1 (``I=-1``, ``tf=3.9e3``)
+in float32 with the benchmark options, recording ``t`` and ``V``. D_sp, D_sn,
+k_p and k_n are perturbed ±5% per cell from a numpy seed; cell 0 keeps the
+published values. ``chip_smoke.py`` checks this program; run as a script,
+
+    python -m petlion_tpu_torch.main_path
+
+profiles it on the card: one cold run, one warm run under ``torch.profiler``
+(CPU and CUDA activities) and three unprofiled warm runs of the same batch.
+It prints the warm walls, the device time summed over all kernels, the
+device-busy share of the wall, the Gauss-Jordan kernel's share, and the
+kernels that take the most device time.
+"""
+
+from __future__ import annotations
+
+import statistics
+import subprocess
+import time
+
+import numpy as np
+import torch
+
+from .chemistry import LCO
+from .ops import gj_kernel
+from .parallel.batch import batch_simulate
+from .sim import Model, petlion
+
+B_MAIN = 1024
+TF = 3.9e3
+SWEPT_THETA = {"D_sp": 1e-14, "D_sn": 3.9e-14, "k_p": 2.334e-11, "k_n": 5.031e-11}
+BENCH_OPTS = dict(abstol=5e-4, reltol=1e-3, max_save=2, maxiters=500)
+WARM_RUNS = 3
+
+
+def model(device="cuda") -> Model:
+    """The float32 LCO model with the benchmark options."""
+    p = petlion(LCO, device=device, dtype=torch.float32)
+    p.opts = p.opts.replace(**BENCH_OPTS)
+    return p
+
+
+def theta_batch(seed: int) -> dict:
+    """The swept θ of B_MAIN cells, ±5% from `seed`; cell 0 unperturbed."""
+    rng = np.random.default_rng(seed)
+    tb = {k: v * (1 + 0.05 * rng.standard_normal(B_MAIN))
+          for k, v in SWEPT_THETA.items()}
+    for k, v in SWEPT_THETA.items():
+        tb[k][0] = v
+    return tb
+
+
+def run(p: Model, seed: int):
+    """One batched discharge on the card: (RunResultDev, wall seconds),
+    the wall ending in a device synchronisation."""
+    tb = theta_batch(seed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = batch_simulate(p, TF, I=-1.0, SOC=1.0, theta_batch=tb,
+                         outputs=("t", "V"))
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def warm_walls(p: Model, seed: int):
+    """WARM_RUNS runs of one batch in this process: the last run's result,
+    the walls, their median and their relative spread (max − min) / median."""
+    walls = []
+    for _ in range(WARM_RUNS):
+        res, wall = run(p, seed)
+        walls.append(wall)
+    med = statistics.median(walls)
+    return res, walls, med, (max(walls) - min(walls)) / med
+
+
+def _device_us(evt):
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(evt, name):
+            return float(getattr(evt, name))
+    return 0.0
+
+
+def main():
+    if not torch.cuda.is_available():
+        raise SystemExit("needs an NVIDIA GPU")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    p = model()
+    run(p, seed=0)
+    gj_kernel.reset_launch_counts()
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        res, wall = run(p, seed=1)
+    launches = gj_kernel.LAUNCHES["gj_inverse"]
+    _, walls, med, spread = warm_walls(p, seed=1)
+
+    ka = prof.key_averages()
+    # device-side entries only (a CPU op's entry repeats its kernels' time)
+    kernels = [e for e in ka if str(getattr(e, "device_type", "")).endswith("CUDA")
+               and _device_us(e) > 0]
+    total_s = sum(_device_us(e) for e in kernels) / 1e6
+    gj_s = sum(_device_us(e) for e in kernels if "gj_inverse" in e.key) / 1e6
+    n_kernels = sum(e.count for e in kernels)
+    att = (res.n_steps + res.n_rejected).cpu().numpy()
+    print(f"card: {card}")
+    print(f"cells {B_MAIN}: warm walls {', '.join(f'{w:.3f}' for w in walls)} s "
+          f"unprofiled (median {med:.3f} s, spread {spread:.1%}), {wall:.3f} s "
+          f"profiled; attempts/cell mean {att.mean():.2f} max {att.max()}")
+    print(f"device kernel time {total_s:.3f} s over {n_kernels} kernel launches "
+          f"({n_kernels / max(int(att.max()), 1):.0f} per outer trip); device "
+          f"busy {total_s / med:.1%} of the unprofiled median wall, "
+          f"{total_s / wall:.1%} of the profiled wall")
+    print(f"gj_inverse kernel: {launches} launches, {gj_s * 1e3:.2f} ms "
+          f"({gj_s / max(total_s, 1e-12):.2%} of device kernel time)")
+    sort_key = ("self_device_time_total"
+                if hasattr(kernels[0] if kernels else ka[0], "self_device_time_total")
+                else "self_cuda_time_total")
+    print(ka.table(sort_by=sort_key, row_limit=25))
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,196 @@
+"""Batched Gauss-Jordan inverse: the CUDA kernel and its plain versions.
+
+Counterpart of the JAX package's ``ops/pallas_gj.py``. The TPU kernel
+``_gj_kernel`` becomes ``csrc/gj_inverse.cu`` (CUDA C++ for sm_90a, one
+thread block per matrix with [A | I] in shared memory; the source says what
+bounds it and why it is shaped so). It is compiled with ``nvcc`` into a
+shared library with a plain C interface, at first use, into
+``build/kernels/`` at the repository root, and bound with ``ctypes``.
+
+Beside it live the plain PyTorch versions of the same function:
+``gj_inverse`` (scalar pivot loop) and ``gj_inverse_blocked`` (the JAX
+package's ``linsolve.gj_inverse_blocked``). ``gj_inverse_hot`` dispatches on
+the tensor's device: a CPU tensor takes the plain blocked version, a CUDA
+tensor launches the kernel or raises — there is no fallback.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+import torch
+
+SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "gj_inverse.cu"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# shared memory one block may use on Hopper (227 KB, opt-in above 48 KB)
+MAX_SMEM_BYTES = 232448
+
+# launches of each kernel; reset with reset_launch_counts()
+LAUNCHES = {"gj_inverse": 0}
+
+
+def reset_launch_counts():
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+# ---------------------------------------------------------------------------
+# plain versions
+# ---------------------------------------------------------------------------
+
+def gj_inverse(A):
+    """Explicit inverse by pivot-free Gauss-Jordan, (..., n, n). Callers
+    equilibrate first; the P2D blocks are diagonally dominant."""
+    n = A.shape[-1]
+    eye = torch.eye(n, dtype=A.dtype, device=A.device).expand(A.shape[:-2] + (n, n))
+    M = torch.cat([A, eye], dim=-1)
+    for k in range(n):
+        piv = M[..., k, k]
+        row = M[..., k, :] / piv[..., None]
+        col = M[..., :, k]
+        M = M - col[..., :, None] * row[..., None, :]
+        M[..., k, :] = row
+    return M[..., :, n:]
+
+
+def gj_inverse_blocked(A, bs: int = 8):
+    """Blocked pivot-free Gauss-Jordan inverse (the plain version of the
+    kernel). n is padded to a multiple of `bs` with an identity tail."""
+    n = A.shape[-1]
+    n_pad = ((n + bs - 1) // bs) * bs
+    batch = A.shape[:-2]
+    kw = dict(dtype=A.dtype, device=A.device)
+    if n_pad != n:
+        Ap = torch.zeros(batch + (n_pad, n_pad), **kw)
+        Ap[..., :n, :n] = A
+        pad = torch.arange(n, n_pad, device=A.device)
+        Ap[..., pad, pad] = 1.0
+        A = Ap
+    m = n_pad
+    M = torch.cat([A, torch.eye(m, **kw).expand(batch + (m, m))], dim=-1)
+    eye_bs = torch.eye(bs, **kw)
+    for kb in range(m // bs):
+        c0, c1 = kb * bs, (kb + 1) * bs
+        Drows = M[..., c0:c1, :]                      # (bs, 2m)
+        Dblk = Drows[..., :, c0:c1]                   # (bs, bs)
+        Dinv = gj_inverse(Dblk)
+        R = torch.matmul(Dinv, Drows)                 # normalised rows
+        # the pivot rows of C become (Dblk − I), so M − C·R also writes R
+        # into the pivot rows: one pass over M per block
+        C = M[..., :, c0:c1].clone()
+        C[..., c0:c1, :] = Dblk - eye_bs
+        M = M - torch.matmul(C, R)
+    inv = M[..., :, m:]
+    if n_pad != n:
+        inv = inv[..., :n, :n]
+    return inv
+
+
+def _best_bs(n: int) -> int:
+    """Block width minimising the blocked-GJ traffic ∝ passes·n_pad²."""
+    def cost(bs):
+        nb = -(-n // bs)
+        return nb * (nb * bs) ** 2
+    return min((32, 24, 16), key=cost)
+
+
+# ---------------------------------------------------------------------------
+# the kernel
+# ---------------------------------------------------------------------------
+
+_lib = None
+BUILD_LOG = ""
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    if home and (Path(home) / "bin" / "nvcc").exists():
+        return str(Path(home) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    from torch.utils.cpp_extension import CUDA_HOME
+    if CUDA_HOME and (Path(CUDA_HOME) / "bin" / "nvcc").exists():
+        return str(Path(CUDA_HOME) / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
+
+
+def build():
+    """Compile (once per source version) and load the kernel library."""
+    global _lib, BUILD_LOG
+    if _lib is not None:
+        return _lib
+    src = SOURCE.read_bytes()
+    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    so = BUILD_DIR / f"libgj_inverse_{tag}.so"
+    if not so.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
+                              capture_output=True, text=True)
+        BUILD_LOG = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{BUILD_LOG}")
+        os.replace(tmp, so)
+    lib = ctypes.CDLL(str(so))
+    for name in ("gj_inverse_f32", "gj_inverse_f64"):
+        fn = getattr(lib, name)
+        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                       ctypes.c_int, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    lib.gj_error_string.argtypes = [ctypes.c_int]
+    lib.gj_error_string.restype = ctypes.c_char_p
+    _lib = lib
+    return lib
+
+
+def smem_bytes(n: int, dtype: torch.dtype) -> int:
+    """Shared memory of one block: [A | I] plus the pivot column and row."""
+    return (2 * n * n + 2 * n + 1) * dtype.itemsize
+
+
+def gj_inverse_cuda(A):
+    """Launch the kernel on a contiguous CUDA (B, n, n) f32/f64 tensor."""
+    if A.device.type != "cuda":
+        raise ValueError(f"gj_inverse_cuda needs a CUDA tensor, got {A.device}")
+    if A.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"gj_inverse_cuda takes float32/float64, got {A.dtype}")
+    if A.ndim != 3 or A.shape[1] != A.shape[2]:
+        raise ValueError(f"gj_inverse_cuda takes (B, n, n), got {tuple(A.shape)}")
+    if not A.is_contiguous():
+        raise ValueError("gj_inverse_cuda takes a contiguous tensor")
+    B, n = A.shape[0], A.shape[1]
+    if smem_bytes(n, A.dtype) > MAX_SMEM_BYTES:
+        raise ValueError(f"n={n} in {A.dtype} needs {smem_bytes(n, A.dtype)} B "
+                         f"of shared memory, more than a block has "
+                         f"({MAX_SMEM_BYTES} B)")
+    out = torch.empty_like(A)
+    if B == 0 or n == 0:
+        return out
+    lib = build()
+    fn = lib.gj_inverse_f32 if A.dtype == torch.float32 else lib.gj_inverse_f64
+    with torch.cuda.device(A.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(A.data_ptr(), out.data_ptr(), B, n, stream)
+    if rc != 0:
+        raise RuntimeError(f"gj_inverse kernel launch failed: "
+                           f"{lib.gj_error_string(rc).decode()} ({rc})")
+    LAUNCHES["gj_inverse"] += 1
+    return out
+
+
+def gj_inverse_hot(A):
+    """(..., n, n) inverses of equilibrated matrices: the kernel for a CUDA
+    tensor, the plain blocked version for a CPU tensor."""
+    n = A.shape[-1]
+    if A.device.type == "cpu":
+        return gj_inverse_blocked(A, bs=_best_bs(n))
+    flat = A.reshape(-1, n, n).contiguous()
+    return gj_inverse_cuda(flat).reshape(A.shape)

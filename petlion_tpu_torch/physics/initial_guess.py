@@ -1,0 +1,39 @@
+"""Initial state-vector guess (counterpart of
+the JAX package's ``physics/initial_guess.py``)."""
+
+from __future__ import annotations
+
+import torch
+
+from .residuals import ModelConfig, check_supported
+
+
+def initial_guess(SOC, th, cfg: ModelConfig):
+    """Build Y0 ``(B, N_tot)`` for fresh runs at state-of-charge `SOC`
+    (a ``(B,)`` tensor) with θ entries of shape ``(B, 1)``.
+
+    Differential states at equilibrium values; algebraic states at their
+    zero-current solution (Φ_s = OCV, Φ_e = 0, j = 0, I = 0).
+    """
+    check_supported(cfg)
+    num, L = cfg.numerics, cfg.layout
+    SOC = SOC.reshape(-1, 1)
+
+    c_s_p = th["c_max_p"] * (SOC * (th["theta_max_p"] - th["theta_min_p"])
+                             + th["theta_min_p"])
+    c_s_n = th["c_max_n"] * (SOC * (th["theta_max_n"] - th["theta_min_n"])
+                             + th["theta_min_n"])
+
+    T0 = th["T0"]
+    U_p, _ = num.OCV_p(c_s_p / th["c_max_p"], T0, th)
+    U_n, _ = num.OCV_n(c_s_n / th["c_max_n"], T0, th)
+
+    B = max(SOC.shape[0], th["c_max_p"].shape[0])
+    y = torch.zeros((B, L.N_tot), dtype=SOC.dtype, device=SOC.device)
+    y[:, L.sl("c_e")] = th["c_e0"]
+    y[:, L.sl("c_s_avg", "p")] = c_s_p
+    y[:, L.sl("c_s_avg", "n")] = c_s_n
+    y[:, L.sl("Phi_s", "p")] = U_p
+    y[:, L.sl("Phi_s", "n")] = U_n
+    # j, Φ_e and I stay 0 — I is overwritten by the run's initial current
+    return y

@@ -1,0 +1,56 @@
+"""Open-circuit-voltage curves U(θ) and their temperature sensitivities
+(counterpart of the JAX package's ``physics/ocv.py``; the curves of the LCO/LiC6
+cell). Every curve returns ``(U, dU/dT)``; the (T − T_ref)·dU/dT correction
+is skipped exactly when T == T_ref.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..constants import T_REF
+
+
+def _sqrt_relu(x, minval=0.0):
+    """sqrt(max(minval, x)). `torch.maximum` (not `clamp`) so the derivative
+    at a tie is split 1/2–1/2, as `jnp.maximum` does."""
+    return torch.sqrt(torch.maximum(x, torch.full_like(x, minval)))
+
+
+def _temp_correct(U, dUdT, T):
+    return U + torch.where(T == T_REF, torch.zeros_like(U), dUdT * (T - T_REF))
+
+
+def OCV_LCO(theta_p, T, th=None):
+    """LiCoO2 cathode OCV."""
+    x = theta_p
+    U = (
+        (-4.656 + 88.669 * x**2 - 401.119 * x**4 + 342.909 * x**6
+         - 462.471 * x**8 + 433.434 * x**10)
+        / (-1.0 + 18.933 * x**2 - 79.532 * x**4 + 37.311 * x**6
+           - 73.083 * x**8 + 95.96 * x**10)
+    )
+    dUdT = -0.001 * (
+        (0.199521039 - 0.928373822 * x + 1.364550689000003 * x**2
+         - 0.6115448939999998 * x**3)
+        / (1.0 - 5.661479886999997 * x + 11.47636191 * x**2
+           - 9.82431213599998 * x**3 + 3.048755063 * x**4)
+    )
+    return _temp_correct(U, dUdT, T), dUdT
+
+
+def OCV_LiC6(theta_n, T, th=None):
+    """Graphite anode OCV."""
+    x = theta_n
+    U = (0.7222 + 0.1387 * x + 0.029 * _sqrt_relu(x) - 0.0172 / x
+         + 0.0019 / (_sqrt_relu(x, minval=1e-4) * x)
+         + 0.2808 * torch.exp(0.9 - 15.0 * x)
+         - 0.7984 * torch.exp(0.4465 * x - 0.4108))
+    num = (0.005269056 + 3.299265709 * x - 91.79325798 * x**2
+           + 1004.911008 * x**3 - 5812.278127 * x**4 + 19329.7549 * x**5
+           - 37147.8947 * x**6 + 38379.18127 * x**7 - 16515.05308 * x**8)
+    den = (1.0 - 48.09287227 * x + 1017.234804 * x**2 - 10481.80419 * x**3
+           + 59431.3 * x**4 - 195881.6488 * x**5 + 374577.3152 * x**6
+           - 385821.1607 * x**7 + 165705.8597 * x**8)
+    dUdT = 0.001 * num / den
+    return _temp_correct(U, dUdT, T), dUdT

@@ -9,24 +9,44 @@ Phases, each of which must pass (any failure exits non-zero and prints no
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; TF32 set off and asserted off, and the port must refuse a
    float32 CUDA run while matmul TF32 is on;
-2. build: compile the Gauss-Jordan kernel (petlion_tpu_torch/csrc/
-   gj_inverse.cu) from the checkout with nvcc;
-3. kernel: hold the kernel against its plain PyTorch version on the card at
-   (B, n) = (1024, 71), (5, 71), (8, 37), (3, 17) in float32 (max |Δ| ≤ 2e-4,
-   ‖AX − I‖∞ < 1e-3) and at (64, 71) in float64 (max |Δ| ≤ 1e-10), and time
-   it with CUDA events beside its bound, the plain version and
-   torch.linalg.inv (a yardstick the port never calls);
-4. main path (petlion_tpu_torch/main_path.py): `batch_simulate` of 1024 LCO
+2. build: compile the three kernels (petlion_tpu_torch/csrc/gj_inverse.cu,
+   gj_blocks.cu, dchain.cu) from the checkout, one nvcc per source, all
+   started together;
+3. kernels, each held against its plain PyTorch version on the card and
+   timed with CUDA events beside its bound, the plain version and, where one
+   PyTorch call computes the same function, that call (a yardstick the port
+   never calls):
+   K1 gj_inverse at (B, n) = (1024, 71), (5, 71), (8, 37), (3, 17) in float32
+   (max |Δ| ≤ 2e-4, ‖AX − I‖∞ < 1e-3) and (64, 71) in float64 (≤ 1e-10);
+   K2 gj_blocks at (M, n) = (10240, 10), (1024, 30) and the odd sizes
+   (7, 10), (7, 17), (7, 30) in float32 (max |Δ| ≤ 2e-4, ‖AX − I‖∞ < 1e-3)
+   and (10240, 10), (1024, 30) in float64 (≤ 1e-10), random diagonally
+   dominant matrices, equilibrated; then the particle and c_e blocks of
+   real Newton matrices;
+   K3 dchain on permuted Schur cores of real Newton matrices of the main
+   path (8 states, tiled to 1024 cells, and 5 cells) with level sizes
+   (20, 20): in float32 every output must be as close to the float64 chain
+   as the plain float32 chain is (error relative to the output's scale at
+   most 4× the plain version's plus 1e-5), and in float64 kernel and plain
+   version agree within 1e-8 of each output's scale (the Φ_s level is
+   nearly singular before the j fill lands on it, so rounding is amplified
+   some 1e5-fold: the plain float32 chain is 5.7e-3 off float64 there);
+4. main paths (petlion_tpu_torch/main_path.py): `batch_simulate` of 1024 LCO
    cells, a 1C discharge from SOC 1 in float32 with the benchmark options,
    D_sp/D_sn/k_p/k_n perturbed ±5% per cell from a numpy seed (cell 0
-   unperturbed). Every cell must exit with flag 0, 1 or 3, the kernel must
-   have been launched during the run, and cell 0 must land within 5 s and
-   8e-3 V of the float64 oracle (tests/data/oracle_lco_1c.npz). Then three
-   warm runs of one batch: their median wall gives discharges/s, their
-   spread the timing noise within one process.
+   unperturbed), on path 1 (analytic assembly, K1 for the core) and path 2
+   (the full-kernel route: nested levels, K2 group inverses, K3 chain).
+   Each path is driven with the launch counts set to 0 just before and read
+   just after. Every cell must exit with flag 0, 1 or 3, each kernel of the
+   path must have been launched, and cell 0 must land within 5 s and 8e-3 V
+   of the float64 oracle (tests/data/oracle_lco_1c.npz). Then three warm
+   runs of one batch per path: their median wall gives discharges/s, their
+   spread the timing noise within one process. The colored-sweep route
+   (PETLION_JACA=0) is driven once at 64 cells under the same checks.
 
-The line before the last is the kernels' JSON record; the last line is
-{"ok": true, "device": {...}}.
+The line before the last is the kernels' JSON record (one entry per kernel;
+`launches` is the count of the path that runs it: path 1 for K1, path 2 for
+K2 and K3); the last line is {"ok": true, "device": {...}}.
 """
 
 import json
@@ -104,11 +124,12 @@ def phase_device():
 def phase_build():
     from petlion_tpu_torch.ops import gj_kernel
     t0 = time.time()
-    gj_kernel.build()
-    print(f"build: {time.time() - t0:.2f} s ({gj_kernel.SOURCE.name})")
-    for line in gj_kernel.BUILD_LOG.splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            print("  ptxas:", line.strip())
+    gj_kernel.compile_all()
+    print(f"build: {time.time() - t0:.2f} s ({', '.join(gj_kernel.KERNEL_SOURCES)})")
+    for name, log in gj_kernel.BUILD_LOGS.items():
+        for line in log.splitlines():
+            if "registers" in line or "smem" in line or "spill" in line:
+                print(f"  ptxas {name}:", line.strip())
 
 
 def _equilibrated_inputs(B, n, dtype, seed):
@@ -121,7 +142,57 @@ def _equilibrated_inputs(B, n, dtype, seed):
     return _equilibrate(A)[0].contiguous()
 
 
-def phase_kernel():
+def _bound(n_bytes, flops):
+    """(bound ms, bound_by) of work that moves n_bytes and does flops."""
+    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
+    flops_ms = flops / PEAK_FP32_FLOP_PER_S * 1e3
+    return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms else "operations")
+
+
+def real_newton_inputs(n_states=8, seed=0):
+    """Newton matrices of the main path (float64, CPU) at perturbed states
+    with BDF coefficients c0 from 0.05 to 50, as the factorization sees
+    them: the equilibrated particle and c_e group blocks, and the Schur core
+    after the group eliminations, permuted so that the nested levels lead."""
+    import numpy as np
+    import torch
+    import petlion_tpu_torch as ptt
+    from petlion_tpu_torch.ops import structured as st
+    from petlion_tpu_torch.ops.plan import FULL_KERNEL_ROUTE, get_plan
+    from petlion_tpu_torch.physics.initial_guess import initial_guess
+    from petlion_tpu_torch.solver import control, linsolve
+    kw = dict(dtype=torch.float64, device="cpu")
+    p = ptt.petlion(ptt.LCO, **kw)
+    plan = get_plan(p.cfg, p.theta_floats(), FULL_KERNEL_ROUTE)
+    L = p.cfg.layout
+    rng = np.random.default_rng(seed)
+    th = {k: v.reshape(1, 1).expand(n_states, 1) for k, v in p.theta.items()}
+    y = initial_guess(torch.as_tensor(rng.uniform(0.1, 1.0, n_states), **kw),
+                      th, p.cfg).numpy()
+    y *= 1.0 + 0.02 * rng.standard_normal(y.shape)
+    for name, scale in (("j", 1e-6), ("Phi_e", 1e-2)):
+        s = L.sl(name)
+        y[:, s] = scale * rng.standard_normal((n_states, s.stop - s.start))
+    y[:, L.sl("I").start] = -1.0
+    y = torch.as_tensor(y)
+    c0 = torch.as_tensor(np.geomspace(0.05, 50.0, n_states), **kw)
+    data = dict(th, _c0=c0[:, None],
+                _const=torch.as_tensor(1e-3 * rng.standard_normal(y.shape)) - c0[:, None] * y)
+    spec = control.ControlSpec("I")
+    value = torch.full((n_states,), -1.0, **kw)
+
+    def g(yy, d):
+        return control.full_residual(spec, value, 0.0, yy,
+                                     d["_c0"] * yy + d["_const"], d, p.cfg)
+
+    JS, last = plan.analytic.compressed(None, y, c0, th, g, data)
+    ds = plan.device_specs(y)
+    _, D = st.eliminate_groups(JS, last, plan.colored, ds)
+    groups = [linsolve._equilibrate(st._extract_A(JS, gt))[0] for gt in ds.groups]
+    return st.permuted_core(D, ds), ds.sizes, groups
+
+
+def phase_k1():
     import torch
     from petlion_tpu_torch.ops import gj_kernel as gk
     rows = {}
@@ -161,44 +232,164 @@ def phase_kernel():
                 bound_by="bytes" if bytes_ms >= flops_ms else "operations")
 
 
-def phase_main(card):
-    import numpy as np
-    from petlion_tpu_torch import main_path as mp
-    from petlion_tpu_torch.ops import gj_kernel as gk
+def phase_k2(groups):
+    import torch
+    from petlion_tpu_torch.ops import gj_blocks as kb
+    cases = [((10240, 10), torch.float32, 2e-4), ((1024, 30), torch.float32, 2e-4),
+             ((7, 10), torch.float32, 2e-4), ((7, 17), torch.float32, 2e-4),
+             ((7, 30), torch.float32, 2e-4), ((10240, 10), torch.float64, 1e-10),
+             ((1024, 30), torch.float64, 1e-10)]
+    errs = {}
+    for (M, n), dtype, tol in cases:
+        A = _equilibrated_inputs(M, n, dtype, seed=M * 100 + n)
+        X = kb.gj_blocks_cuda(A)
+        P = kb.gj_blocks_plain(A)
+        torch.cuda.synchronize()
+        err = float((X - P).abs().max())
+        eye = torch.eye(n, dtype=torch.float64, device="cuda")
+        resid = float((A.double() @ X.double() - eye).abs().amax(dim=(-2, -1)).max())
+        print(f"K2 {str(dtype)[6:]} ({M}, {n}, {n}): max|kernel - plain| = {err:.3e}, "
+              f"max ||AX - I||inf = {resid:.3e} (tol {tol:g})")
+        check(err <= tol, f"K2 disagrees with plain at ({M}, {n}) {dtype}: {err}")
+        check(resid < 1e-3, f"K2 inverse residual at ({M}, {n}) {dtype}: {resid}")
+        errs[(M, n, dtype)] = err
+    # blocks of real Newton matrices: as close to the float64 inverse as the
+    # plain float32 version is
+    for G in groups:
+        n = G.shape[-1]
+        A64 = G.reshape(-1, n, n).to("cuda").repeat(128, 1, 1).contiguous()
+        ref = kb.gj_blocks_plain(A64)
+        scale = float(ref.abs().max())
+        e_k = float((kb.gj_blocks_cuda(A64.float()).double() - ref).abs().max()) / scale
+        e_p = float((kb.gj_blocks_plain(A64.float()).double() - ref).abs().max()) / scale
+        e_64 = float((kb.gj_blocks_cuda(A64) - ref).abs().max()) / scale
+        print(f"K2 real blocks {tuple(A64.shape)}: f32 error vs f64 / scale: kernel "
+              f"{e_k:.3e}, plain {e_p:.3e}; f64 kernel vs plain {e_64:.3e}")
+        check(e_k <= 4 * e_p + 1e-5, f"K2 less accurate than plain on real blocks: {e_k}")
+        check(e_64 <= 1e-10, f"K2 float64 disagrees on real blocks: {e_64}")
 
-    p = mp.model(device="cuda")
-    oracle = np.load(ORACLE)
+    timings = {}
+    for M, n in ((10240, 10), (1024, 30)):
+        A = _equilibrated_inputs(M, n, torch.float32, seed=3)
+        ms = cuda_time_ms(lambda: kb.gj_blocks_cuda(A), reps=100)
+        plain_ms = cuda_time_ms(lambda: kb.gj_blocks_plain(A), reps=10)
+        library_ms = cuda_time_ms(lambda: torch.linalg.inv(A), reps=20)
+        bound_ms, by = _bound(2 * M * n * n * 4, 2 * n ** 3 * M)
+        print(f"K2 timing ({M}, {n}, {n}) f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"torch.linalg.inv {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({by})")
+        timings[(M, n)] = (ms, plain_ms, library_ms, bound_ms, by)
+    ms, plain_ms, library_ms, bound_ms, by = timings[(10240, 10)]
+    return dict(max_abs_err=errs[(10240, 10, torch.float32)], ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=by)
+
+
+def _dchain_flops(n, sizes):
+    """Operations of the chain on one core: per level an n_k Gauss-Jordan
+    inverse (2 n_k^3), AinvB (2 n_k^2 r) and the Schur update (2 r^2 n_k);
+    then the inverse of the rest."""
+    f, m = 0, n
+    for nk in sizes:
+        r = m - nk
+        f += 2 * nk ** 3 + 2 * nk * nk * r + 2 * r * r * nk
+        m = r
+    return f + 2 * m ** 3
+
+
+def phase_k3(Dp, sizes):
+    import torch
+    from petlion_tpu_torch.ops import dchain as kd
+    n = Dp.shape[-1]
+    out_elems = sum(a * b for a, b in kd.out_shapes(n, sizes))
+    err_rec = None
+    for B in (1024, 5):
+        reps = -(-B // Dp.shape[0])
+        D64 = Dp.to("cuda").repeat(reps, 1, 1)[:B].contiguous()
+        ref = kd.dchain_plain(D64, sizes)
+        got32 = kd.dchain_cuda(D64.float(), sizes)
+        plain32 = kd.dchain_plain(D64.float(), sizes)
+        got64 = kd.dchain_cuda(D64, sizes)
+        torch.cuda.synchronize()
+        worst = 0.0
+        for i, (k32, p32, k64, r) in enumerate(zip(got32, plain32, got64, ref)):
+            scale = float(r.abs().max())
+            e_k = float((k32.double() - r).abs().max()) / scale
+            e_p = float((p32.double() - r).abs().max()) / scale
+            e_kp = float((k32 - p32).abs().max())
+            e_64 = float((k64 - r).abs().max()) / scale
+            print(f"K3 B={B} output {i} {tuple(r.shape[1:])}: f32 error vs f64 / scale: "
+                  f"kernel {e_k:.3e}, plain {e_p:.3e}; max|kernel - plain| f32 {e_kp:.3e}; "
+                  f"f64 kernel vs plain / scale {e_64:.3e}")
+            check(e_k <= 4 * e_p + 1e-5,
+                  f"K3 output {i} at B={B}: kernel error {e_k} vs plain {e_p}")
+            check(e_64 <= 1e-8, f"K3 float64 output {i} at B={B}: {e_64}")
+            worst = max(worst, e_kp)
+        if B == 1024:
+            err_rec = worst
+    D32 = Dp.to("cuda").float().repeat(128, 1, 1).contiguous()
+    ms = cuda_time_ms(lambda: kd.dchain_cuda(D32, sizes), reps=50)
+    plain_ms = cuda_time_ms(lambda: kd.dchain_plain(D32, sizes), reps=10)
+    B = D32.shape[0]
+    bound_ms, by = _bound((n * n + out_elems) * 4 * B, _dchain_flops(n, sizes) * B)
+    print(f"K3 timing ({B}, {n}, {n}) sizes {sizes} f32: kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, no single PyTorch call computes the chain, bound "
+          f"{bound_ms:.4f} ms ({by}: {(n * n + out_elems) * 4 * B / 1e6:.1f} MB, "
+          f"{_dchain_flops(n, sizes) * B / 1e9:.3f} GFLOP)")
+    return dict(max_abs_err=err_rec, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=bound_ms, bound_by=by)
+
+
+def drive_path(mp, p, name, route, oracle, n_cells, needs):
+    """Drive one path once with the launch counts set to 0 just before and
+    read just after; check it; return (launches, result)."""
+    import numpy as np
+    from petlion_tpu_torch.ops import gj_kernel as gk
     gk.reset_launch_counts()
-    res, wall = mp.run(p, seed=0)
-    launches = gk.LAUNCHES["gj_inverse"]
+    res, wall = mp.run(p, seed=0, route=route, n_cells=n_cells)
+    launches = dict(gk.LAUNCHES)
     flags = res.flag.cpu().numpy()
     steps = res.n_steps.cpu().numpy().astype(float)
     att = steps + res.n_rejected.cpu().numpy()
     t_end = float(res.t_final[0])
     V_end = float(p.layout.V(res.y_final[0]))
-    print(f"main path (first run, includes plan build): {wall:.3f} s for "
-          f"{mp.B_MAIN} cells, gj_inverse launches {launches}")
+    print(f"{name} (first run, includes plan build): {wall:.3f} s for {n_cells} cells, "
+          f"launches {launches}")
     print(f"  flags {dict(zip(*np.unique(flags, return_counts=True)))}; "
           f"steps/cell mean {steps.mean():.2f}, attempts/cell mean "
           f"{att.mean():.2f} max {att.max():.0f}")
     print(f"  cell 0: t_end {t_end:.4f} s (oracle {float(oracle['t_end']):.4f}), "
           f"V_end {V_end:.5f} V (oracle {float(oracle['V_end']):.5f})")
-    check(launches > 0, "the main path never launched the gj_inverse kernel")
+    for k in needs:
+        check(launches[k] > 0, f"{name} never launched the {k} kernel")
     check(bool(np.isin(flags, (0, 1, 3)).all()),
-          f"cells exited with flags {sorted(set(flags.tolist()))}")
-    check(bool(np.isfinite(res.y_final.cpu().numpy()).all()), "non-finite final states")
-    check(abs(t_end - float(oracle["t_end"])) <= 5.0, "cell 0 exit time off the oracle")
-    check(abs(V_end - float(oracle["V_end"])) <= 8e-3, "cell 0 V_end off the oracle")
+          f"{name}: cells exited with flags {sorted(set(flags.tolist()))}")
+    check(bool(np.isfinite(res.y_final.cpu().numpy()).all()), f"{name}: non-finite final states")
+    check(abs(t_end - float(oracle["t_end"])) <= 5.0, f"{name}: cell 0 exit time off the oracle")
+    check(abs(V_end - float(oracle["V_end"])) <= 8e-3, f"{name}: cell 0 V_end off the oracle")
+    return launches
 
-    # warm runs of one batch in this process: the end-to-end metric is their
-    # median, and their spread is the noise within one process
-    res2, walls, med, spread = mp.warm_walls(p, seed=1)
-    check(bool(np.isin(res2.flag.cpu().numpy(), (0, 1, 3)).all()), "warm run: bad flags")
-    att2 = (res2.n_steps + res2.n_rejected).cpu().numpy()
-    print(f"main path (warm, {len(walls)} runs of one batch): walls "
-          f"{', '.join(f'{w:.3f}' for w in walls)} s, median {med:.3f} s = "
-          f"{mp.B_MAIN / med:.1f} discharges/s, spread {spread:.1%}; "
-          f"attempts/cell mean {att2.mean():.2f} max {att2.max()} [{card}]")
+
+def phase_main(card):
+    import numpy as np
+    from petlion_tpu_torch import main_path as mp
+
+    p = mp.model(device="cuda")
+    oracle = np.load(ORACLE)
+    launches = {}
+    for name, route, needs in (("path 1", mp.PATH1, ("gj_inverse",)),
+                               ("path 2", mp.PATH2, ("gj_inverse", "gj_blocks", "dchain"))):
+        launches[name] = drive_path(mp, p, name, route, oracle, mp.B_MAIN, needs)
+        # warm runs of one batch in this process: the end-to-end metric is
+        # their median, and their spread is the noise within one process
+        res2, walls, med, spread = mp.warm_walls(p, seed=1, route=route)
+        check(bool(np.isin(res2.flag.cpu().numpy(), (0, 1, 3)).all()),
+              f"{name} warm run: bad flags")
+        att2 = (res2.n_steps + res2.n_rejected).cpu().numpy()
+        print(f"{name} (warm, {len(walls)} runs of one batch): walls "
+              f"{', '.join(f'{w:.3f}' for w in walls)} s, median {med:.3f} s = "
+              f"{mp.B_MAIN / med:.1f} discharges/s, spread {spread:.1%}; steps/cell "
+              f"mean {res2.n_steps.float().mean().item():.2f}, attempts/cell mean "
+              f"{att2.mean():.2f} max {att2.max()} [{card}]")
+    drive_path(mp, p, "colored route", mp.COLORED, oracle, 64, ("gj_inverse",))
     return launches
 
 
@@ -211,17 +402,30 @@ def main():
     try:
         card = phase_device()
         phase_build()
-        k = phase_kernel()
+        k1 = phase_k1()
+        Dp, sizes, groups = real_newton_inputs()
+        k2 = phase_k2(groups)
+        k3 = phase_k3(Dp, sizes)
         launches = phase_main(card)
     except Exception:   # report any phase failure and exit non-zero
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
-    record = {"name": "gj_inverse", "route": "cuda",
-              "source": "petlion_tpu_torch/csrc/gj_inverse.cu",
-              "replaces": "petlion_tpu/ops/pallas_gj.py:57",
-              "launches": launches, **k}
-    print(json.dumps({"kernels": [record]}))
+    records = [
+        {"name": "gj_inverse", "route": "cuda",
+         "source": "petlion_tpu_torch/csrc/gj_inverse.cu",
+         "replaces": "petlion_tpu/ops/pallas_gj.py:57",
+         "launches": launches["path 1"]["gj_inverse"], **k1},
+        {"name": "gj_blocks", "route": "cuda",
+         "source": "petlion_tpu_torch/csrc/gj_blocks.cu",
+         "replaces": "petlion_tpu/ops/pallas_gj.py:57",
+         "launches": launches["path 2"]["gj_blocks"], **k2},
+        {"name": "dchain", "route": "cuda",
+         "source": "petlion_tpu_torch/csrc/dchain.cu",
+         "replaces": "petlion_tpu/ops/pallas_schur.py:82",
+         "launches": launches["path 2"]["dchain"], **k3},
+    ]
+    print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -2,9 +2,10 @@
 simulation package that sits beside it as its reference.
 
 Same module names as the JAX package; batch-first tensors throughout, with
-the Gauss-Jordan inverse of the main path as a CUDA kernel
-(`ops/gj_kernel.py`, `csrc/gj_inverse.cu`). Entry points run on CUDA unless
-the caller passes ``device="cpu"``.
+the JAX package's three TPU kernels as CUDA kernels (`csrc/`: the
+Gauss-Jordan inverse, the stacked small inverses and the fused nested Schur
+chain; bound in `ops/gj_kernel.py`, `ops/gj_blocks.py`, `ops/dchain.py`).
+Entry points run on CUDA unless the caller passes ``device="cpu"``.
 """
 
 from .chemistry import LCO

@@ -104,7 +104,7 @@ int gj_inverse_f64(const double* A, double* out, int batch, int n,
     return launch<double>(A, out, batch, n, stream);
 }
 
-const char* gj_error_string(int code) {
+const char* gj_inverse_error_string(int code) {
     return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 

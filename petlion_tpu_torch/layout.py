@@ -23,6 +23,8 @@ import dataclasses
 from functools import cached_property
 from typing import Dict, Tuple
 
+import numpy as np
+
 from .config import Discretizations, Numerics
 
 
@@ -154,6 +156,17 @@ class StateLayout:
             n_r = getattr(self.N, "r_" + electrode)
             return y[..., s.start + n_r - 1:s.stop:n_r]
         return y[..., s]
+
+    def c_s_surface_slice(self, electrode: str) -> np.ndarray:
+        """Global indices of one electrode's particle-surface
+        concentrations: every r-th node for Fickian diffusion, all of the
+        electrode's states for the averaged models."""
+        s = self.sl("c_s_avg", electrode)
+        if self.solid_diffusion == "Fickian":
+            n_r = getattr(self.N, "r_" + electrode)
+            n_el = (s.stop - s.start) // n_r   # 0 for the half-cell anode
+            return np.arange(1, n_el + 1) * n_r - 1 + s.start
+        return np.arange(s.start, s.stop)
 
     def V(self, y):
         """Cell voltage = Φ_s[first cathode CV] − Φ_s[last anode CV]."""

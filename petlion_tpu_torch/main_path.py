@@ -1,18 +1,31 @@
-"""The port's main path, defined once, and where its time goes on the card.
+"""The port's main paths, defined once, and where their time goes on the card.
 
 The main path is the program of the JAX package's ``bench.py:make_runner``:
 ``B_MAIN`` = 1024 LCO cells, isothermal, Fickian finite-difference radial
 diffusion, the default mesh, a 1C discharge from SOC 1 (``I=-1``, ``tf=3.9e3``)
 in float32 with the benchmark options, recording ``t`` and ``V``. D_sp, D_sn,
 k_p and k_n are perturbed ±5% per cell from a numpy seed; cell 0 keeps the
-published values. ``chip_smoke.py`` checks this program; run as a script,
+published values. It runs on two routes (``ops/plan.py:Route``):
 
-    python -m petlion_tpu_torch.main_path
+* path 1, ``PATH1``: the JAX package's default route — analytic assembly,
+  no nested levels, group inverses in plain Gauss-Jordan, the 71×71 core
+  through K1 (``gj_inverse``);
+* path 2, ``PATH2``: the full-kernel route — analytic assembly, the nested
+  j and Φ_s levels, the group inverses through K2 (``gj_blocks``) and the
+  nested chain with the core inverse through K3 (``dchain``); K1 runs only
+  in consistent initialization.
 
-profiles it on the card: one cold run, one warm run under ``torch.profiler``
-(CPU and CUDA activities) and three unprofiled warm runs of the same batch.
-It prints the warm walls, the device time summed over all kernels, the
-device-busy share of the wall, the Gauss-Jordan kernel's share, and the
+``COLORED`` is the colored-sweep route (``PETLION_JACA=0``), kept for
+comparison.
+``chip_smoke.py`` checks these programs; run as a script,
+
+    python -m petlion_tpu_torch.main_path [path1|path2 ...]
+
+profiles each named path (both by default) on the card: one cold run, one
+warm run under ``torch.profiler`` (CPU and CUDA activities) and three
+unprofiled warm runs of the same batch. It prints the warm walls, the device
+time summed over all kernels, the kernels per outer trip, the device-busy
+share of the wall, each hand-written kernel's launches and share, and the
 kernels that take the most device time.
 """
 
@@ -20,6 +33,7 @@ from __future__ import annotations
 
 import statistics
 import subprocess
+import sys
 import time
 
 import numpy as np
@@ -27,6 +41,7 @@ import torch
 
 from .chemistry import LCO
 from .ops import gj_kernel
+from .ops.plan import FULL_KERNEL_ROUTE, Route
 from .parallel.batch import batch_simulate
 from .sim import Model, petlion
 
@@ -35,6 +50,12 @@ TF = 3.9e3
 SWEPT_THETA = {"D_sp": 1e-14, "D_sn": 3.9e-14, "k_p": 2.334e-11, "k_n": 5.031e-11}
 BENCH_OPTS = dict(abstol=5e-4, reltol=1e-3, max_save=2, maxiters=500)
 WARM_RUNS = 3
+PATH1 = Route()
+PATH2 = FULL_KERNEL_ROUTE
+COLORED = Route(analytic=False)
+PATHS = {"path1": PATH1, "path2": PATH2}
+KERNEL_SYMBOLS = {"gj_inverse": "gj_inverse_kernel",
+                  "gj_blocks": "gj_blocks_kernel", "dchain": "dchain_kernel"}
 
 
 def model(device="cuda") -> Model:
@@ -54,24 +75,25 @@ def theta_batch(seed: int) -> dict:
     return tb
 
 
-def run(p: Model, seed: int):
-    """One batched discharge on the card: (RunResultDev, wall seconds),
-    the wall ending in a device synchronisation."""
-    tb = theta_batch(seed)
+def run(p: Model, seed: int, route: Route = PATH1, n_cells: int = B_MAIN):
+    """One batched discharge of the first `n_cells` cells on the card:
+    (RunResultDev, wall seconds), the wall ending in a device
+    synchronisation."""
+    tb = {k: v[:n_cells] for k, v in theta_batch(seed).items()}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = batch_simulate(p, TF, I=-1.0, SOC=1.0, theta_batch=tb,
-                         outputs=("t", "V"))
+                         outputs=("t", "V"), route=route)
     torch.cuda.synchronize()
     return res, time.perf_counter() - t0
 
 
-def warm_walls(p: Model, seed: int):
+def warm_walls(p: Model, seed: int, route: Route = PATH1):
     """WARM_RUNS runs of one batch in this process: the last run's result,
     the walls, their median and their relative spread (max − min) / median."""
     walls = []
     for _ in range(WARM_RUNS):
-        res, wall = run(p, seed)
+        res, wall = run(p, seed, route)
         walls.append(wall)
     med = statistics.median(walls)
     return res, walls, med, (max(walls) - min(walls)) / med
@@ -84,44 +106,54 @@ def _device_us(evt):
     return 0.0
 
 
-def main():
-    if not torch.cuda.is_available():
-        raise SystemExit("needs an NVIDIA GPU")
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60).stdout.strip()
-    p = model()
-    run(p, seed=0)
+def profile(p: Model, name: str, card: str):
+    """Profile one path (see the module docstring) and print its numbers."""
+    route = PATHS[name]
+    run(p, seed=0, route=route)
     gj_kernel.reset_launch_counts()
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        res, wall = run(p, seed=1)
-    launches = gj_kernel.LAUNCHES["gj_inverse"]
-    _, walls, med, spread = warm_walls(p, seed=1)
+    from torch.profiler import ProfilerActivity, profile as tprofile
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        res, wall = run(p, seed=1, route=route)
+    launches = dict(gj_kernel.LAUNCHES)
+    _, walls, med, spread = warm_walls(p, seed=1, route=route)
 
     ka = prof.key_averages()
     # device-side entries only (a CPU op's entry repeats its kernels' time)
     kernels = [e for e in ka if str(getattr(e, "device_type", "")).endswith("CUDA")
                and _device_us(e) > 0]
     total_s = sum(_device_us(e) for e in kernels) / 1e6
-    gj_s = sum(_device_us(e) for e in kernels if "gj_inverse" in e.key) / 1e6
     n_kernels = sum(e.count for e in kernels)
     att = (res.n_steps + res.n_rejected).cpu().numpy()
-    print(f"card: {card}")
+    trips = max(int(att.max()), 1)
+    print(f"== {name}: {route} [{card}]")
     print(f"cells {B_MAIN}: warm walls {', '.join(f'{w:.3f}' for w in walls)} s "
           f"unprofiled (median {med:.3f} s, spread {spread:.1%}), {wall:.3f} s "
-          f"profiled; attempts/cell mean {att.mean():.2f} max {att.max()}")
+          f"profiled; steps/cell mean {res.n_steps.float().mean().item():.2f}, "
+          f"attempts/cell mean {att.mean():.2f} max {att.max()}")
     print(f"device kernel time {total_s:.3f} s over {n_kernels} kernel launches "
-          f"({n_kernels / max(int(att.max()), 1):.0f} per outer trip); device "
-          f"busy {total_s / med:.1%} of the unprofiled median wall, "
+          f"({n_kernels / trips:.0f} per outer trip); device busy "
+          f"{total_s / med:.1%} of the unprofiled median wall, "
           f"{total_s / wall:.1%} of the profiled wall")
-    print(f"gj_inverse kernel: {launches} launches, {gj_s * 1e3:.2f} ms "
-          f"({gj_s / max(total_s, 1e-12):.2%} of device kernel time)")
+    for kname, symbol in KERNEL_SYMBOLS.items():
+        k_s = sum(_device_us(e) for e in kernels if symbol in e.key) / 1e6
+        print(f"{kname} kernel: {launches[kname]} launches, {k_s * 1e3:.2f} ms "
+              f"({k_s / max(total_s, 1e-12):.2%} of device kernel time)")
     sort_key = ("self_device_time_total"
                 if hasattr(kernels[0] if kernels else ka[0], "self_device_time_total")
                 else "self_cuda_time_total")
     print(ka.table(sort_by=sort_key, row_limit=25))
 
 
+def main(names=("path1", "path2")):
+    if not torch.cuda.is_available():
+        raise SystemExit("needs an NVIDIA GPU")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60).stdout.strip()
+    p = model()
+    for name in names:
+        profile(p, name, card)
+
+
 if __name__ == "__main__":
-    main()
+    main(tuple(sys.argv[1:]) or ("path1", "path2"))

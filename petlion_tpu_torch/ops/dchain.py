@@ -1,0 +1,127 @@
+"""The fused nested Schur chain on the permuted core: K3, the CUDA kernel,
+and its plain version.
+
+Counterpart of the JAX package's ``ops/pallas_schur.py`` (``_dchain_kernel``
+via ``dchain_pallas`` / ``make_dchain_hot``). After the group eliminations
+the Schur core D is permuted so that each nested level is a leading block
+(``structured.make_sparse_specs`` computes the permutation and the level
+sizes). For each level of size nk the chain computes, on the current core
+[A B; C D22]: invA (the equilibrated inverse of A, scalings folded back),
+AinvB = invA·B and D ← D22 − C·AinvB; then the folded equilibrated inverse
+of what is left. Outputs, per level: invA (B, nk, nk), AinvB (B, nk, r),
+C (B, r, nk); then the core inverse (B, r_last, r_last).
+
+On the card it is ``csrc/dchain.cu``: one thread block per cell, the whole
+core in shared memory through every level (the source says what bounds it).
+``dchain_plain`` follows ``_dchain_kernel`` step by step with batched torch
+operations; ``dchain_hot`` takes it for a CPU tensor, and a CUDA tensor
+launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .gj_kernel import MAX_SMEM_BYTES, check_launch, gj_inverse, library
+
+MAX_LEVELS = 4      # csrc/dchain.cu kMaxLevels
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_LAUNCHERS = {f"dchain_{t}": [_P, ctypes.POINTER(ctypes.c_void_p),
+                              ctypes.POINTER(ctypes.c_int), _I, _I, _I, _P]
+              for t in ("f32", "f64")}
+
+
+def build():
+    """Compile (once per source version) and load the K3 library."""
+    return library("dchain", _LAUNCHERS)
+
+
+def inv_equil(A, invert=gj_inverse):
+    """Row/col-equilibrated explicit inverse with the scalings folded back
+    (the JAX package's ``pallas_schur._inv_equil``): equilibrate columns,
+    then rows, invert pivot-free with `invert`, and fold
+    ``inv_s / col[:, None] / row[None, :]``, since
+    A = diag(row)·As·diag(col)  ⇒  A⁻¹ = diag(1/col)·As⁻¹·diag(1/row)."""
+    colA = torch.clamp_min(A.abs().amax(dim=-2), 1e-30)
+    As = A / colA[..., None, :]
+    rowA = torch.clamp_min(As.abs().amax(dim=-1), 1e-30)
+    As = As / rowA[..., :, None]
+    return invert(As) / colA[..., :, None] / rowA[..., None, :]
+
+
+def out_shapes(n: int, sizes) -> list:
+    """Per-cell shapes of the chain's outputs, in order."""
+    shapes, rest = [], n
+    for nk in sizes:
+        r = rest - nk
+        shapes += [(nk, nk), (nk, r), (r, nk)]
+        rest = r
+    shapes.append((rest, rest))
+    return shapes
+
+
+def dchain_plain(D, sizes):
+    """The chain on a (B, n, n) permuted core, batched torch operations."""
+    outs = []
+    for nk in sizes:
+        A, Bm, C = D[:, :nk, :nk], D[:, :nk, nk:], D[:, nk:, :nk]
+        invA = inv_equil(A)
+        AinvB = torch.matmul(invA, Bm)
+        D = D[:, nk:, nk:] - torch.matmul(C, AinvB)
+        outs += [invA, AinvB, C.contiguous()]
+    outs.append(inv_equil(D))
+    return tuple(outs)
+
+
+def smem_bytes(n: int, sizes, dtype: torch.dtype) -> int:
+    """Shared memory of one block: the core, the augmented [As | I] of the
+    largest inverse, the AinvB panel and the pivot/scaling vectors."""
+    m, m_max, panel = n, 0, 1
+    for nk in sizes:
+        m_max, panel = max(m_max, nk), max(panel, nk * (m - nk))
+        m -= nk
+    m_max = max(m_max, m)
+    return (n * n + 2 * m_max * m_max + panel + 4 * m_max + 1) * dtype.itemsize
+
+
+def dchain_cuda(D, sizes):
+    """Launch K3 on a contiguous CUDA (B, n, n) f32/f64 permuted core."""
+    if D.device.type != "cuda":
+        raise ValueError(f"dchain_cuda needs a CUDA tensor, got {D.device}")
+    if D.dtype not in (torch.float32, torch.float64):
+        raise TypeError(f"dchain_cuda takes float32/float64, got {D.dtype}")
+    if D.ndim != 3 or D.shape[1] != D.shape[2]:
+        raise ValueError(f"dchain_cuda takes (B, n, n), got {tuple(D.shape)}")
+    if not D.is_contiguous():
+        raise ValueError("dchain_cuda takes a contiguous tensor")
+    sizes = tuple(int(s) for s in sizes)
+    B, n = D.shape[0], D.shape[1]
+    if len(sizes) > MAX_LEVELS or any(s < 1 for s in sizes) or sum(sizes) >= n:
+        raise ValueError(f"dchain_cuda: level sizes {sizes} do not fit n={n}")
+    if smem_bytes(n, sizes, D.dtype) > MAX_SMEM_BYTES:
+        raise ValueError(f"dchain_cuda: n={n} in {D.dtype} needs "
+                         f"{smem_bytes(n, sizes, D.dtype)} B of shared memory")
+    outs = tuple(torch.empty((B,) + s, dtype=D.dtype, device=D.device)
+                 for s in out_shapes(n, sizes))
+    if B == 0:
+        return outs
+    lib = build()
+    fn = lib.dchain_f32 if D.dtype == torch.float32 else lib.dchain_f64
+    ptrs = (ctypes.c_void_p * len(outs))(*(o.data_ptr() for o in outs))
+    csizes = (ctypes.c_int * max(len(sizes), 1))(*sizes)
+    with torch.cuda.device(D.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(D.data_ptr(), ptrs, csizes, len(sizes), B, n, stream)
+    check_launch(lib, "dchain", rc)
+    return outs
+
+
+def dchain_hot(D, sizes):
+    """The chain on a (B, n, n) permuted core: K3 for a CUDA tensor, the
+    plain version for a CPU tensor."""
+    if D.device.type == "cpu":
+        return dchain_plain(D, sizes)
+    return dchain_cuda(D.contiguous(), sizes)

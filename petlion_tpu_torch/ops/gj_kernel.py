@@ -1,13 +1,18 @@
-"""Batched Gauss-Jordan inverse: the CUDA kernel and its plain versions.
+"""Batched Gauss-Jordan inverse: the CUDA kernel and its plain versions,
+and the build of every CUDA kernel of the port.
 
 Counterpart of the JAX package's ``ops/pallas_gj.py``. The TPU kernel
 ``_gj_kernel`` becomes ``csrc/gj_inverse.cu`` (CUDA C++ for sm_90a, one
 thread block per matrix with [A | I] in shared memory; the source says what
-bounds it and why it is shaped so). It is compiled with ``nvcc`` into a
-shared library with a plain C interface, at first use, into
-``build/kernels/`` at the repository root, and bound with ``ctypes``.
+bounds it and why it is shaped so).
 
-Beside it live the plain PyTorch versions of the same function:
+Every ``csrc/<name>.cu`` is compiled with ``nvcc`` into a shared library with
+a plain C interface, at first use (or all together by ``compile_all``), into
+``build/kernels/`` at the repository root, one library per source version,
+and bound with ``ctypes`` (``library``). ``LAUNCHES`` counts the launches of
+each kernel.
+
+Beside the kernel live the plain PyTorch versions of the same function:
 ``gj_inverse`` (scalar pivot loop) and ``gj_inverse_blocked`` (the JAX
 package's ``linsolve.gj_inverse_blocked``). ``gj_inverse_hot`` dispatches on
 the tensor's device: a CPU tensor takes the plain blocked version, a CUDA
@@ -25,7 +30,8 @@ from pathlib import Path
 
 import torch
 
-SOURCE = Path(__file__).resolve().parent.parent / "csrc" / "gj_inverse.cu"
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+KERNEL_SOURCES = ("gj_inverse", "gj_blocks", "dchain")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -33,7 +39,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 MAX_SMEM_BYTES = 232448
 
 # launches of each kernel; reset with reset_launch_counts()
-LAUNCHES = {"gj_inverse": 0}
+LAUNCHES = {name: 0 for name in KERNEL_SOURCES}
 
 
 def reset_launch_counts():
@@ -105,8 +111,8 @@ def _best_bs(n: int) -> int:
 # the kernel
 # ---------------------------------------------------------------------------
 
-_lib = None
-BUILD_LOG = ""
+BUILD_LOGS: dict = {}     # source name -> nvcc output of its last build
+_libs: dict = {}
 
 
 def _nvcc() -> str:
@@ -122,33 +128,71 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: set CUDA_HOME or put nvcc on PATH")
 
 
-def build():
-    """Compile (once per source version) and load the kernel library."""
-    global _lib, BUILD_LOG
-    if _lib is not None:
-        return _lib
-    src = SOURCE.read_bytes()
+def _so_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
     tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    so = BUILD_DIR / f"libgj_inverse_{tag}.so"
-    if not so.exists():
+    return BUILD_DIR / f"lib{name}_{tag}.so"
+
+
+def compile_all(names=KERNEL_SOURCES):
+    """Compile each named source whose library is not built yet: one nvcc
+    per source, all started together. Raises if any build fails."""
+    jobs = {}
+    for name in names:
+        so = _so_path(name)
+        if so.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)],
-                              capture_output=True, text=True)
-        BUILD_LOG = proc.stdout + proc.stderr
+        jobs[name] = (so, tmp, subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    failed = []
+    for name, (so, tmp, proc) in jobs.items():
+        BUILD_LOGS[name] = proc.communicate()[0]
         if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {SOURCE}:\n{BUILD_LOG}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    for name in ("gj_inverse_f32", "gj_inverse_f64"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                       ctypes.c_int, ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-    lib.gj_error_string.argtypes = [ctypes.c_int]
-    lib.gj_error_string.restype = ctypes.c_char_p
-    _lib = lib
-    return lib
+            failed.append(name)
+        else:
+            os.replace(tmp, so)
+    if failed:
+        raise RuntimeError("nvcc failed on " + ", ".join(
+            f"{CSRC / (n + '.cu')}:\n{BUILD_LOGS[n]}" for n in failed))
+
+
+def library(name: str, launchers: dict):
+    """The loaded library of ``csrc/<name>.cu`` (compiled at first use).
+    `launchers` maps each exported launcher to its ctypes argument types;
+    every launcher returns a cudaError_t code, and ``<name>_error_string``
+    turns a code into text."""
+    if name not in _libs:
+        compile_all((name,))
+        lib = ctypes.CDLL(str(_so_path(name)))
+        for fn_name, argtypes in launchers.items():
+            fn = getattr(lib, fn_name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
+        _libs[name] = lib
+    return _libs[name]
+
+
+def check_launch(lib, name: str, rc: int):
+    """Raise if a launcher returned a CUDA error; count the launch if not."""
+    if rc != 0:
+        msg = getattr(lib, f"{name}_error_string")(rc).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} ({rc})")
+    LAUNCHES[name] += 1
+
+
+_P, _I = ctypes.c_void_p, ctypes.c_int
+_GJ_LAUNCHERS = {f"gj_inverse_{t}": [_P, _P, _I, _I, _P] for t in ("f32", "f64")}
+
+
+def build():
+    """Compile (once per source version) and load the K1 library."""
+    return library("gj_inverse", _GJ_LAUNCHERS)
 
 
 def smem_bytes(n: int, dtype: torch.dtype) -> int:
@@ -179,10 +223,7 @@ def gj_inverse_cuda(A):
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(A.data_ptr(), out.data_ptr(), B, n, stream)
-    if rc != 0:
-        raise RuntimeError(f"gj_inverse kernel launch failed: "
-                           f"{lib.gj_error_string(rc).decode()} ({rc})")
-    LAUNCHES["gj_inverse"] += 1
+    check_launch(lib, "gj_inverse", rc)
     return out
 
 

@@ -1,12 +1,29 @@
 """Jacobian/solver plan: sparsity detection + coloring + structured solve
-(counterpart of the JAX package's ``ops/plan.py``, colored path).
+(counterpart of the JAX package's ``ops/plan.py``).
 
 Sparsity detection runs once per model config on the CPU in float64, from
-the same randomized sample states as the JAX package; the index metadata
-then moves to each run's device once and stays there.
+the same randomized sample states as the JAX package; a plan (coloring,
+elimination specs, analytic write plan) is built once per config and route,
+and its index metadata moves to each run's device once and stays there.
+
+The route selects how the Newton matrix is assembled and factored. By
+default it reads the JAX package's environment variables, with the same
+defaults, when the plan is built, so one setting selects the same route in
+both packages:
+
+    PETLION_JACA          "1"  analytic assembly (ops/analytic.py) where
+                               supported; "0" the colored sweeps
+    PETLION_NESTED        "0"  no nested levels; "1" j then Φ_s; "j" j only
+    PETLION_PALLAS_BLOCKS "0"  "1": group inverses through K2 (gj_blocks)
+    PETLION_PALLAS_DCHAIN "0"  "1": nested chain + core inverse through K3
+
+The full-kernel route is ``FULL_KERNEL_ROUTE`` (all four on).
 """
 
 from __future__ import annotations
+
+import dataclasses
+import os
 
 import numpy as np
 import torch
@@ -14,23 +31,57 @@ import torch
 from ..physics.initial_guess import initial_guess
 from ..physics.residuals import ModelConfig, residual_core
 from ..solver import linsolve
+from . import analytic as _analytic
 from .jacobian import ColoredJacobian, detect_sparsity, last_row_grad, stacked_jvp
 from .structured import (device_specs, make_group_split, make_sparse_specs,
                          sparse_schur_factor, sparse_schur_solve)
+
+_NESTED = {"1": ("j", "Phi_s"), "j": ("j",), "0": ()}
+
+
+@dataclasses.dataclass(frozen=True)
+class Route:
+    """How a plan assembles and factors the Newton matrix."""
+    nested: tuple = ()        # families eliminated inside the core, in order
+    blocks: bool = False      # group inverses through K2
+    dchain: bool = False      # nested chain + core inverse through K3
+    analytic: bool = True     # closed-form assembly where supported
+
+    @staticmethod
+    def from_env() -> "Route":
+        env = os.environ.get
+        return Route(nested=_NESTED.get(env("PETLION_NESTED", "0"), ()),
+                     blocks=env("PETLION_PALLAS_BLOCKS", "0") != "0",
+                     dchain=env("PETLION_PALLAS_DCHAIN", "0") != "0",
+                     analytic=env("PETLION_JACA", "1") != "0")
+
+
+FULL_KERNEL_ROUTE = Route(nested=("j", "Phi_s"), blocks=True, dchain=True)
 
 
 class JacobianPlan:
     """Coloring + multi-group Schur factor/solve for one model config."""
 
-    def __init__(self, cfg: ModelConfig, pattern: np.ndarray):
+    def __init__(self, cfg: ModelConfig, pattern: np.ndarray,
+                 route: Route = Route(), theta_sample: dict | None = None):
         self.cfg = cfg
+        self.route = route
         # the control row is computed exactly by one reverse pass and is
         # excluded from the coloring, so it is declared dense
         pattern = pattern.copy()
         pattern[-1, :] = True
         self.colored = ColoredJacobian(pattern)
         self.split = make_group_split(cfg.layout, pattern)
-        self._specs = make_sparse_specs(self.colored, self.split, cfg.layout)
+        self._specs = make_sparse_specs(self.colored, self.split, cfg.layout,
+                                        route.nested)
+        # closed-form assembly where it covers the pattern, else the sweeps
+        self.analytic = None
+        if route.analytic and theta_sample is not None:
+            try:
+                self.analytic = _analytic.AnalyticJacobian(cfg, self.colored,
+                                                           theta_sample)
+            except _analytic.Unsupported:
+                self.analytic = None
         self._dev = {}
         self._alg_cache = None
 
@@ -71,38 +122,64 @@ class JacobianPlan:
                               torch.as_tensor(seeds_alg, **kw))
         return self._dev[key]
 
-    def factor_alg(self, alg_res, y_alg, data: dict):
-        """Colored Jacobian + equilibrated inverse of the algebraic block.
+    def factor_alg(self, alg_res, y_alg, data: dict, y_diff=None, th=None):
+        """Jacobian + equilibrated inverse of the algebraic block: the
+        analytic block when the plan has it and θ and y_diff are given,
+        else the colored sweeps. Either way the substituted control row is
+        an exact reverse pass.
 
         alg_res(y_alg, data) -> (M, n_alg) is batch-first; `data` holds the
         per-cell tensors it closes over (tiled with the sweeps)."""
-        colors_alg, mask, seeds = self._alg_meta(y_alg)
-        JS = stacked_jvp(alg_res, y_alg, data, seeds)   # (B, n_used, n_alg)
-        J = JS[:, colors_alg, :].transpose(1, 2) * mask  # J[b,i,j]=JS[b,c[j],i]
+        if self.analytic is not None and th is not None and y_diff is not None:
+            J = self.analytic.alg_block(torch.cat([y_diff, y_alg], dim=-1), th)
+        else:
+            colors_alg, mask, seeds = self._alg_meta(y_alg)
+            JS = stacked_jvp(alg_res, y_alg, data, seeds)   # (B, n_used, n_alg)
+            J = JS[:, colors_alg, :].transpose(1, 2) * mask  # J[b,i,j]=JS[b,c[j],i]
         last = last_row_grad(alg_res, y_alg, data)
         J = torch.cat([J[:, :-1], last[:, None, :]], dim=1)
         return linsolve.equilibrated_inv_factor(J)
 
-    def factor_compressed(self, g, y, data: dict):
-        """Newton-matrix factorization straight from the colored sweeps;
-        neither the dense (N, N) matrix nor the coupling blocks are formed.
-        g(y, data) is batch-first, `data` its per-cell tensors."""
-        JS, last = self.colored.compressed(g, y, data)
-        return sparse_schur_factor(JS, last, self.colored, self.device_specs(y))
+    def factor_compressed(self, g, y, data: dict, t=None, c0=None, th=None):
+        """Newton-matrix factorization straight from the analytic assembly
+        (when the plan has it and t, c0 and θ are given) or the colored
+        sweeps; neither the dense (N, N) matrix nor the coupling blocks are
+        formed. g(y, data) is batch-first, `data` its per-cell tensors."""
+        if self.analytic is not None and th is not None and c0 is not None:
+            JS, last = self.analytic.compressed(t, y, c0, th, g, data)
+        else:
+            JS, last = self.colored.compressed(g, y, data)
+        return sparse_schur_factor(JS, last, self.colored, self.device_specs(y),
+                                   blocks=self.route.blocks,
+                                   dchain=self.route.dchain)
 
     def solve(self, fac, b):
         return sparse_schur_solve(fac, b, self.device_specs(b))
 
 
-_PLAN_CACHE: dict = {}
+_PLAN_CACHE: dict = {}       # (cfg, θ keys, route) -> JacobianPlan
+_PATTERN_CACHE: dict = {}    # (cfg, θ keys) -> detected pattern
 
 
-def get_plan(cfg: ModelConfig, theta: dict) -> JacobianPlan:
-    """The plan for `cfg`, built once from float θ on the CPU in float64."""
-    key = (cfg, tuple(sorted(theta.keys())))
-    if key in _PLAN_CACHE:
-        return _PLAN_CACHE[key]
+def get_plan(cfg: ModelConfig, theta: dict, route: Route | None = None
+             ) -> JacobianPlan:
+    """The plan for `cfg` on `route` (default: ``Route.from_env()``), built
+    once from float θ on the CPU in float64."""
+    route = Route.from_env() if route is None else route
+    keys = tuple(sorted(theta.keys()))
+    key = (cfg, keys, route)
+    if key not in _PLAN_CACHE:
+        if (cfg, keys) not in _PATTERN_CACHE:
+            _PATTERN_CACHE[(cfg, keys)] = _detect_pattern(cfg, theta)
+        _PLAN_CACHE[key] = JacobianPlan(
+            cfg, _PATTERN_CACHE[(cfg, keys)], route,
+            theta_sample={k: float(v) for k, v in theta.items()})
+    return _PLAN_CACHE[key]
 
+
+def _detect_pattern(cfg: ModelConfig, theta: dict) -> np.ndarray:
+    """The Newton matrix's sparsity pattern at the JAX package's sample
+    states, on the CPU in float64."""
     kw = dict(dtype=torch.float64, device="cpu")
     th = {k: torch.tensor([[float(v)]], **kw) for k, v in theta.items()}
     L = cfg.layout
@@ -128,7 +205,4 @@ def get_plan(cfg: ModelConfig, theta: dict) -> JacobianPlan:
         return residual_core(t, y, yp, d, cfg)
 
     with torch.no_grad():
-        pattern = detect_sparsity(F, ys, yps, ts, th, L.N_diff)
-    plan = JacobianPlan(cfg, pattern)
-    _PLAN_CACHE[key] = plan
-    return plan
+        return detect_sparsity(F, ys, yps, ts, th, L.N_diff)

@@ -1,15 +1,24 @@
 """Structured Newton-matrix factorization exploiting the P2D block sparsity
-(counterpart of the JAX package's ``ops/structured.py``, multi-group path without
-nested levels).
+(counterpart of the JAX package's ``ops/structured.py``, multi-group path with
+its nested in-core levels).
 
     J = [ A  B ]   A: block-diagonal groups — the cathode and anode particle
         [ C  D ]      blocks (N_r × N_r each) and the c_e block
                    D: the core (j, Φ_e, Φ_s, I): 71 × 71 on the default mesh
 
-Block elimination: D' = D − Σ_g C_g A_g⁻¹ B_g; then D' is inverted by the
-equilibrated Gauss-Jordan (the CUDA kernel on the card). B and C have only a
-few nonzero columns/rows per block, so the Schur update is gathers and a
-scatter-add with no dense (n_elim × n_core) intermediates.
+Block elimination: D' = D − Σ_g C_g A_g⁻¹ B_g. B and C have only a few
+nonzero columns/rows per block, so the Schur update is gathers and a
+scatter-add with no dense (n_elim × n_core) intermediates. Then, when the
+plan names nested families (j, then Φ_s: core 71 → 51 → 31), each is
+eliminated from the dense core in turn, and what is left is inverted by the
+equilibrated Gauss-Jordan (K1 on the card).
+
+The route picks where the linear algebra runs: with ``blocks`` the group
+inverses go to K2 (``ops/gj_blocks.py``); with ``dchain`` the whole nested
+chain and the core inverse go to K3 (``ops/dchain.py``) on the core permuted
+so that each level is a leading block, and the factorization is a
+``SparseSchurP`` solved in permuted coordinates. A CPU tensor takes each
+kernel's plain version through the same data flow.
 
 Everything carries a leading cells axis. The static index metadata is built
 once on the host (numpy) and moved to the run's device once
@@ -25,6 +34,8 @@ import torch
 
 from ..layout import StateLayout
 from ..solver import linsolve
+from .dchain import dchain_hot, inv_equil
+from .gj_blocks import gj_blocks_hot
 
 
 class GroupSplit(NamedTuple):
@@ -124,14 +135,33 @@ def _group_coupling(pattern, rows2d, i2, pos_of):
                         bpos=pos_of[bcols_p], cpos=pos_of[crows_p])
 
 
+def make_nested_specs(layout: StateLayout, i_core: np.ndarray,
+                      families=("j", "Phi_s")) -> tuple:
+    """Static per-level (e_pos, r_pos) position arrays into the shrinking
+    core vector, one level per eliminated family. The control row (last
+    core position) always stays in the final core."""
+    cur = np.asarray(i_core)
+    specs = []
+    for fam in families:
+        if fam not in layout:
+            continue
+        s = layout.sl(fam)
+        mask = np.isin(cur, np.arange(s.start, s.stop))
+        if not mask.any() or mask.all():
+            continue
+        e_pos = np.nonzero(mask)[0]
+        r_pos = np.nonzero(~mask)[0]
+        specs.append((e_pos, r_pos))
+        cur = cur[r_pos]
+    return tuple(specs)
+
+
 def make_sparse_specs(colored, split: GroupSplit, layout: StateLayout = None,
-                      nested_families=()):
+                      nested_families=("j", "Phi_s")):
     """Static specs for the multi-group Schur factorization: per-group
-    coupling and the core submatrix spec. Nested in-core levels are not
-    ported; asking for them raises."""
-    if nested_families:
-        raise NotImplementedError(
-            f"nested in-core elimination levels {tuple(nested_families)}")
+    coupling, the core submatrix spec, the nested in-core levels (none
+    without a layout) and `pinfo` = (perm, sizes), the core permutation that
+    makes each level a leading block (None without levels)."""
     i2 = split.i_core
     pattern = colored.pattern
     pos_of = np.zeros(colored.n, dtype=np.int64)
@@ -139,7 +169,19 @@ def make_sparse_specs(colored, split: GroupSplit, layout: StateLayout = None,
     cspecs = tuple(_group_coupling(pattern, g, i2, pos_of)
                    for g in split.group_rows)
     spec_D = colored.submatrix_spec(i2, i2)
-    return (cspecs, spec_D, (), None)
+    nested = (make_nested_specs(layout, i2, nested_families)
+              if layout is not None else ())
+    pinfo = None
+    if nested:
+        cur = np.arange(len(i2))
+        order, sizes = [], []
+        for e_pos, r_pos in nested:
+            order.append(cur[e_pos])
+            sizes.append(len(e_pos))
+            cur = cur[r_pos]
+        order.append(cur)
+        pinfo = (np.concatenate(order), tuple(sizes))
+    return (cspecs, spec_D, nested, pinfo)
 
 
 class GroupTensors(NamedTuple):
@@ -161,10 +203,13 @@ class DeviceSpecs(NamedTuple):
     groups: tuple             # GroupTensors per group
     spec_D: tuple             # core submatrix spec, tensors
     i_core: torch.Tensor
+    levels: tuple             # per nested level (e_pos, r_pos)
+    perm: torch.Tensor        # core permutation of pinfo (None without levels)
+    sizes: tuple              # level sizes of pinfo
 
 
 def device_specs(colored, specs, split: GroupSplit, device, dtype) -> DeviceSpecs:
-    cspecs, spec_D, _, _ = specs
+    cspecs, spec_D, nested, pinfo = specs
 
     def lt(a):
         return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)
@@ -185,16 +230,32 @@ def device_specs(colored, specs, split: GroupSplit, device, dtype) -> DeviceSpec
             c_is_last=torch.as_tensor(cs.crows == colored.n - 1, device=device),
             bpos=lt(cs.bpos), cpos=lt(cs.cpos)))
     r, c, cc, mask, last_pos = spec_D
+    perm, sizes = pinfo if pinfo is not None else (None, ())
     return DeviceSpecs(groups=tuple(groups),
                        spec_D=(lt(r), lt(c), lt(cc), ft(mask), last_pos),
-                       i_core=lt(split.i_core))
+                       i_core=lt(split.i_core),
+                       levels=tuple((lt(e), lt(r_)) for e, r_ in nested),
+                       perm=None if perm is None else lt(perm), sizes=sizes)
 
 
 class SparseSchur(NamedTuple):
-    """Per-group (inv, AinvB, C) triples + the equilibrated core inverse,
-    each with a leading cells axis."""
+    """Per-group (inv, AinvB, C) triples, per nested level (invA, AinvB, C)
+    triples and the equilibrated core inverse, each with a leading cells
+    axis."""
     groups: tuple
     core_inv: tuple
+    levels: tuple = ()
+
+
+class SparseSchurP(NamedTuple):
+    """The fused-chain variant, in PERMUTED core coordinates (the levels are
+    leading blocks; the plan's `perm` holds the permutation): per-group
+    triples as in SparseSchur, per-level (invA, AinvB, C) from the chain,
+    and the FOLDED core inverse (scalings multiplied back), so a solve with
+    it is one matvec."""
+    groups: tuple
+    core_inv: torch.Tensor
+    levels: tuple = ()
 
 
 def _extract_A(JS, g: GroupTensors):
@@ -214,21 +275,26 @@ def _extract_C(JS, last_row, g: GroupTensors):
     return torch.where(g.c_is_last[:, :, None], lr * g.cmask, M)
 
 
-def sparse_schur_factor(JS, last_row, colored, dspecs: DeviceSpecs):
+def _sub(D, rows, cols):
+    return D[:, rows[:, None], cols[None, :]]
+
+
+def eliminate_groups(JS, last_row, colored, dspecs: DeviceSpecs, *,
+                     blocks: bool = False):
+    """The level-1 group eliminations: (per-group (inv, AinvB, C) triples,
+    the Schur core D = J22 − Σ_g C_g A_g⁻¹ B_g). `blocks` sends the group
+    inverses (n ≥ 10) to K2."""
     B = JS.shape[0]
     bidx = torch.arange(B, device=JS.device)[:, None, None, None]
     D = colored.submatrix(JS, last_row, dspecs.spec_D)
     per_group = []
     for g in dspecs.groups:
         A = _extract_A(JS, g)                            # (B, n_part, r, r)
-        # equilibrate, invert pivot-free (c0·I minus a diffusion operator:
-        # diagonally dominant), then fold the scalings back:
-        #   A⁻¹ = diag(1/col) · inv(As) · diag(1/row)
-        colA = torch.clamp_min(A.abs().amax(dim=-2), 1e-30)
-        rowA = torch.clamp_min((A / colA[..., None, :]).abs().amax(dim=-1),
-                               1e-30)
-        inv_s = linsolve.gj_inverse(A / colA[..., None, :] / rowA[..., :, None])
-        inv = inv_s / colA[..., :, None] / rowA[..., None, :]
+        # equilibrated pivot-free inverse (c0·I minus a diffusion operator:
+        # diagonally dominant); K2 takes the blocks as the JAX package's
+        # _gj_inverse_routed(min_n=10) does
+        inv = inv_equil(A, gj_blocks_hot if blocks and A.shape[-1] >= 10
+                        else linsolve.gj_inverse)
         Bm = _extract_B(JS, g)                           # (B, n_part, r, m_b)
         Cm = _extract_C(JS, last_row, g)                 # (B, n_part, m_c, r)
         AinvB = torch.matmul(inv, Bm)
@@ -236,11 +302,49 @@ def sparse_schur_factor(JS, last_row, colored, dspecs: DeviceSpecs):
         D = D.index_put((bidx, g.cpos[None, :, :, None], g.bpos[None, :, None, :]),
                         -S, accumulate=True)
         per_group.append((inv, AinvB, Cm))
+    return tuple(per_group), D
+
+
+def permuted_core(D, dspecs: DeviceSpecs):
+    """The core with the rows and columns of the plan's permutation, so that
+    each nested level is a leading block (K3's input)."""
+    return _sub(D, dspecs.perm, dspecs.perm)
+
+
+def sparse_schur_factor(JS, last_row, colored, dspecs: DeviceSpecs, *,
+                        blocks: bool = False, dchain: bool = False):
+    """Factor the Newton matrix given by its colored sweeps. `blocks` sends
+    the group inverses (n ≥ 10) to K2; `dchain` sends the nested chain and
+    the core inverse to K3 (when the plan has levels) and returns a
+    SparseSchurP."""
+    per_group, D = eliminate_groups(JS, last_row, colored, dspecs,
+                                    blocks=blocks)
+    if dchain and dspecs.perm is not None:
+        # the whole chain in one kernel, on the core permuted so that each
+        # level is a leading block
+        outs = dchain_hot(permuted_core(D, dspecs), dspecs.sizes)
+        levels = tuple(outs[3 * i:3 * i + 3] for i in range(len(dspecs.sizes)))
+        return SparseSchurP(groups=per_group, core_inv=outs[-1], levels=levels)
+    levels = []
+    for e_pos, r_pos in dspecs.levels:
+        # with blocks, a level of 17 or more goes to K1, as the JAX package
+        # routes it (_gj_inverse_routed(min_n=17))
+        A = _sub(D, e_pos, e_pos)
+        invA = inv_equil(A, linsolve.gj_inverse_hot if blocks and A.shape[-1] >= 17
+                         else linsolve.gj_inverse)
+        AinvB = torch.matmul(invA, _sub(D, e_pos, r_pos))
+        Cm = _sub(D, r_pos, e_pos)
+        D = _sub(D, r_pos, r_pos) - torch.matmul(Cm, AinvB)
+        levels.append((invA, AinvB, Cm))
     core_inv = linsolve.equilibrated_inv_factor(D)
-    return SparseSchur(groups=tuple(per_group), core_inv=core_inv)
+    return SparseSchur(groups=per_group, core_inv=core_inv, levels=tuple(levels))
 
 
-def sparse_schur_solve(fac: SparseSchur, b, dspecs: DeviceSpecs):
+def _mv(M, v):
+    return torch.matmul(M, v[..., None])[..., 0]
+
+
+def sparse_schur_solve(fac, b, dspecs: DeviceSpecs):
     B = b.shape[0]
     bidx = torch.arange(B, device=b.device)[:, None, None]
     rhs2 = b[:, dspecs.i_core]
@@ -252,7 +356,32 @@ def sparse_schur_solve(fac: SparseSchur, b, dspecs: DeviceSpecs):
         cz = torch.matmul(C, z)[..., 0]                  # (B, n_part, m_c)
         rhs2 = rhs2.index_put((bidx, g.cpos[None]), -cz, accumulate=True)
         zs.append(z)
-    x2 = linsolve.equilibrated_inv_solve(fac.core_inv, rhs2)
+    zl = []
+    if isinstance(fac, SparseSchurP):
+        # permuted coordinates: each level is a leading block
+        r2 = rhs2[:, dspecs.perm]
+        for (invA, AinvB, Cm), nk in zip(fac.levels, dspecs.sizes):
+            z = _mv(invA, r2[:, :nk])
+            r2 = r2[:, nk:] - _mv(Cm, z)
+            zl.append(z)
+        x2 = _mv(fac.core_inv, r2)
+        for (invA, AinvB, Cm), z in zip(reversed(fac.levels), reversed(zl)):
+            x2 = torch.cat([z - _mv(AinvB, x2), x2], dim=-1)
+        xu = torch.empty_like(x2)
+        xu[:, dspecs.perm] = x2                          # unpermute
+        x2 = xu
+    else:
+        for (invA, AinvB, Cm), (e_pos, r_pos) in zip(fac.levels, dspecs.levels):
+            z = _mv(invA, rhs2[:, e_pos])
+            rhs2 = rhs2[:, r_pos] - _mv(Cm, z)
+            zl.append(z)
+        x2 = linsolve.equilibrated_inv_solve(fac.core_inv, rhs2)
+        for (invA, AinvB, Cm), (e_pos, r_pos), z in zip(
+                reversed(fac.levels), reversed(dspecs.levels), reversed(zl)):
+            xf = x2.new_empty((B, len(e_pos) + len(r_pos)))
+            xf[:, r_pos] = x2
+            xf[:, e_pos] = z - _mv(AinvB, x2)
+            x2 = xf
     x = torch.zeros_like(b)
     x[:, dspecs.i_core] = x2
     for (inv, AinvB, C), g, z in zip(fac.groups, dspecs.groups, zs):

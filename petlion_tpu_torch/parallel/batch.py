@@ -13,7 +13,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from ..ops.plan import get_plan
+from ..ops.plan import Route, get_plan
 from ..physics.initial_guess import initial_guess
 from ..sim import Model, _OPT_KEYS, _build_control, resolve_device
 from ..solver import events
@@ -29,13 +29,16 @@ def batch_simulate(p: Model,
                    value_batch=None,
                    device=None,
                    dtype: Optional[torch.dtype] = None,
+                   route: Optional[Route] = None,
                    **kwargs) -> RunResultDev:
     """Run the same control segment over a batch of cells.
 
     theta_batch: dict of θ overrides with a leading batch dim (other θ keys
     broadcast). SOC / value_batch may be scalars or (B,) arrays. `device`
-    and `dtype` default to the model's. Returns RunResultDev with a leading
-    cells axis on every field.
+    and `dtype` default to the model's. `route` selects the Newton-matrix
+    assembly and factorization (``ops.plan.Route``; default: the
+    PETLION_* environment variables, as in the JAX package). Returns
+    RunResultDev with a leading cells axis on every field.
     """
     dtype = p.dtype if dtype is None else dtype
     dev = resolve_device(p.device if device is None else device, dtype)
@@ -87,7 +90,7 @@ def batch_simulate(p: Model,
 
     with torch.no_grad():
         y_start = initial_guess(soc0, th, p.cfg)
-        plan = get_plan(p.cfg, p.theta_floats())
+        plan = get_plan(p.cfg, p.theta_floats(), route)
         return run_once(y_start=y_start, soc0=soc0, value=value, tf=tf, th=th,
                         bounds=bounds, cfg=p.cfg, spec=spec, opts=opts,
                         jac_plan=plan)

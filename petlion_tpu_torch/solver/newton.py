@@ -34,9 +34,11 @@ def _select(mask, a, b):
 
 def consistent_init(F: Callable, y0, n_diff: int, data: dict, *,
                     reltol_init=1e-3, maxiter=100, c_e0=1000.0, t0=0.0,
-                    jac_plan=None) -> InitResult:
+                    jac_plan=None, th=None) -> InitResult:
     """F(t, y, yp, data) -> full residual (B, N) with the control row; `data`
-    holds the per-cell tensors F reads (θ, setpoint). y0: (B, N) guess."""
+    holds the per-cell tensors F reads (θ, setpoint). y0: (B, N) guess. With
+    θ (`th`, (B, 1) tensors) the plan may assemble the algebraic block
+    analytically."""
     nd = n_diff
     dtype = y0.dtype
 
@@ -51,7 +53,7 @@ def consistent_init(F: Callable, y0, n_diff: int, data: dict, *,
         y_diff, y_alg = y[:, :nd], y[:, nd:]
         d = dict(data, _y_diff=y_diff)
         r = alg_res(y_alg, d)
-        lu = jac_plan.factor_alg(alg_res, y_alg, d)
+        lu = jac_plan.factor_alg(alg_res, y_alg, d, y_diff=y_diff, th=th)
         step = linsolve.equilibrated_inv_solve(lu, r)
         # trust-region cap against astronomically long steps (f32 noise
         # floors, extreme setpoints); convergent iterations are unchanged

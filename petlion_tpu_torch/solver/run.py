@@ -138,7 +138,7 @@ def run_once(*, y_start, soc0, value, tf, th, bounds: dict,
     y0[:, L.sl("I").start] = value
     init = consistent_init(F, y0, nd, data, reltol_init=opts.reltol_init_,
                            maxiter=opts.init_maxiter, c_e0=1000.0,
-                           jac_plan=jac_plan)
+                           jac_plan=jac_plan, th=th)
     y0, yp0 = init.y, init.yp
 
     # ---- integrator setup ---------------------------------------------------
@@ -158,7 +158,7 @@ def run_once(*, y_start, soc0, value, tf, th, bounds: dict,
         def g(yy, dd):
             return F(dd[_T][:, 0], yy, dd[_C0] * yy + dd[_CONST], dd)
 
-        return jac_plan.factor_compressed(g, y_pred, d)
+        return jac_plan.factor_compressed(g, y_pred, d, t=t, c0=c0, th=th)
 
     hmax = opts.dtmax if opts.dtmax is not None else float("inf")
     stepper = bdf.Stepper(lambda t, y, yp: F(t, y, yp, data), jac_and_factor,

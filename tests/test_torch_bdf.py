@@ -45,22 +45,26 @@ def test_predict_change_D_dense_eval_match_jax():
     t_eval = t - 0.37 * h
     dy, dyp = bdf.dense_eval(torch.as_tensor(D), torch.as_tensor(h), i64(order),
                              torch.as_tensor(t), torch.as_tensor(t_eval))
+    # one trace of each reference function serves all three cells
+    j_predict = jax.jit(jbdf.predict)
+    j_change_D = jax.jit(jbdf.change_D)
+    j_dense_eval = jax.jit(jbdf.dense_eval)
     for b in range(B):
         sj = jbdf.BDFState(
             t=jnp.asarray(t[b]), h=jnp.asarray(h[b]), order=jnp.int32(order[b]),
             D=jnp.asarray(D[b]), n_equal=jnp.int32(b), status=jnp.int32(0),
             yp=jnp.asarray(yp[b]), n_steps=jnp.int32(b + 1),
             n_rejected=jnp.int32(0), n_fails=jnp.int32(0))
-        ref = jbdf.predict(sj, t_bound, 1e-10, np.inf)
+        ref = j_predict(sj, t_bound, 1e-10, np.inf)
         for got, want in zip(pred, ref):
             np.testing.assert_allclose(got[b].numpy(), np.asarray(want),
                                        rtol=1e-12, atol=1e-14)
         np.testing.assert_allclose(
             cD[b].numpy(),
-            np.asarray(jbdf.change_D(jnp.asarray(D[b]), order[b], factor[b])),
+            np.asarray(j_change_D(jnp.asarray(D[b]), order[b], factor[b])),
             rtol=1e-12, atol=1e-14)
-        ry, ryp = jbdf.dense_eval(jnp.asarray(D[b]), h[b], order[b], t[b],
-                                  t_eval[b])
+        ry, ryp = j_dense_eval(jnp.asarray(D[b]), h[b], order[b], t[b],
+                               t_eval[b])
         np.testing.assert_allclose(dy[b].numpy(), np.asarray(ry), rtol=1e-12,
                                    atol=1e-14)
         np.testing.assert_allclose(dyp[b].numpy(), np.asarray(ryp), rtol=1e-12,

@@ -83,3 +83,35 @@ def test_matches_jax_batch_simulate(monkeypatch):
                                rtol=1e-8)
     V_ref = np.asarray(ref.y_final)[:, 280] - np.asarray(ref.y_final)[:, 299]
     np.testing.assert_allclose(p.layout.V(got.y_final).numpy(), V_ref, rtol=1e-8)
+
+
+@pytest.mark.slow
+def test_full_kernel_route_matches_jax_batch_simulate(monkeypatch):
+    """Three per-cell-perturbed cells on the port's full-kernel route (nested
+    levels, K2/K3's plain versions on the CPU, analytic assembly) against the
+    JAX package's batch_simulate with PETLION_NESTED=1 (its analytic, nested
+    XLA route off the TPU): flags and step counts equal, exit times and
+    voltages at 1e-8."""
+    import petlion_tpu as pt
+    from petlion_tpu.ops import plan as jax_plan
+    from petlion_tpu.parallel.batch import batch_simulate as jax_batch
+    from petlion_tpu_torch.ops.plan import FULL_KERNEL_ROUTE
+
+    monkeypatch.setenv("PETLION_NESTED", "1")
+    monkeypatch.setattr(jax_plan, "_PLAN_CACHE", {})
+    rng = np.random.default_rng(4)
+    base = {"D_sp": 1e-14, "D_sn": 3.9e-14, "k_p": 2.334e-11, "k_n": 5.031e-11}
+    tb = {k: v * (1 + 0.05 * rng.standard_normal(3)) for k, v in base.items()}
+    kw = dict(I=-1.0, SOC=1.0, outputs=("t", "V"), max_save=16)
+    ref = jax_batch(pt.petlion(pt.LCO), 3.9e3, theta_batch=tb, **kw)
+    p = ptt.petlion(ptt.LCO, device="cpu", dtype=torch.float64)
+    got = ptt.batch_simulate(p, 3.9e3, theta_batch=tb, route=FULL_KERNEL_ROUTE,
+                             **kw)
+    np.testing.assert_array_equal(got.flag.numpy(), np.asarray(ref.flag))
+    np.testing.assert_array_equal(got.n_steps.numpy(), np.asarray(ref.n_steps))
+    np.testing.assert_array_equal(got.n_rejected.numpy(),
+                                  np.asarray(ref.n_rejected))
+    np.testing.assert_allclose(got.t_final.numpy(), np.asarray(ref.t_final),
+                               rtol=1e-8)
+    V_ref = np.asarray(ref.y_final)[:, 280] - np.asarray(ref.y_final)[:, 299]
+    np.testing.assert_allclose(p.layout.V(got.y_final).numpy(), V_ref, rtol=1e-8)

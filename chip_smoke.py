@@ -13,11 +13,16 @@ Phases, each of which must pass (any failure exits non-zero and prints no
    gj_blocks.cu, dchain.cu) from the checkout, one nvcc per source, all
    started together;
 3. kernels, each held against its plain PyTorch version on the card and
-   timed with CUDA events beside its bound, the plain version and, where one
-   PyTorch call computes the same function, that call (a yardstick the port
-   never calls):
+   timed beside its bound, the plain version and, where one PyTorch call
+   computes the same function, that call (a yardstick the port never calls):
    K1 gj_inverse at (B, n) = (1024, 71), (5, 71), (8, 37), (3, 17) in float32
-   (max |Δ| ≤ 2e-4, ‖AX − I‖∞ < 1e-3) and (64, 71) in float64 (≤ 1e-10);
+   (max |Δ| ≤ 2e-4 against the plain blocked version and against its mirror
+   gj_inverse_inplace, ‖AX − I‖∞ < 1e-3) and (64, 71) in float64 (≤ 1e-10);
+   every n from 1 to 169 in float32 and 1 to 120 in float64 against the
+   mirror; and the equilibrated 71×71 Schur cores of real Newton matrices
+   (8 states tiled to 1024): the float32 error against float64, relative to
+   each matrix's scale, at most 4× that of the plain float32 mirror and of
+   the blocked version at the TPU kernel's block width 8, plus 1e-5;
    K2 gj_blocks at (M, n) = (10240, 10), (1024, 30) and the odd sizes
    (7, 10), (7, 17), (7, 30) in float32 (max |Δ| ≤ 2e-4, ‖AX − I‖∞ < 1e-3)
    and (10240, 10), (1024, 30) in float64 (≤ 1e-10), random diagonally
@@ -31,6 +36,12 @@ Phases, each of which must pass (any failure exits non-zero and prints no
    version agree within 1e-8 of each output's scale (the Φ_s level is
    nearly singular before the j fill lands on it, so rounding is amplified
    some 1e5-fold: the plain float32 chain is 5.7e-3 off float64 there);
+   then diagonally dominant cores at other level sizes, some with levels
+   above 32 (the 16×16 tile grid), against the plain chain.
+   K1 and K3 are timed over four rotating input buffers (82 MB in all, more
+   than the 50 MB L2) behind a spin kernel that holds the stream while the
+   host queues the launches, so the time is the device's; K2 is timed as
+   before (one input, CUDA events around back-to-back launches);
 4. main paths (petlion_tpu_torch/main_path.py): `batch_simulate` of 1024 LCO
    cells, a 1C discharge from SOC 1 in float32 with the benchmark options,
    D_sp/D_sn/k_p/k_n perturbed ±5% per cell from a numpy seed (cell 0
@@ -63,6 +74,10 @@ ORACLE = os.path.join(HERE, "tests", "data", "oracle_lco_1c.npz")
 # cores (the kernel does scalar FMAs)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
+# spin that holds the stream while the host queues timed launches: 1.2e8
+# cycles, at least 60 ms at the H100's 1.98 GHz boost clock
+SPIN_CYCLES = 120_000_000
+ROTATING = 4        # input buffers rotated in the K1 and K3 timings
 
 
 class SmokeFailure(Exception):
@@ -86,6 +101,34 @@ def cuda_time_ms(fn, reps, warmup=3):
         fn()
     stop.record()
     torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def device_ms(fn, inputs, reps, spin=True):
+    """Device ms per call of fn, rotating over `inputs` (so that the reads
+    come from device memory when the inputs exceed the L2). With `spin`, a
+    spin kernel holds the stream while the host queues the calls, so CUDA
+    events time the queued calls alone (checked: the host must queue them
+    faster than the spin lasts); without, as cuda_time_ms (for the plain
+    versions, whose host work is part of what they cost)."""
+    import torch
+    for x in inputs:
+        fn(x)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    if spin:
+        torch.cuda._sleep(SPIN_CYCLES)
+    start.record()
+    t0 = time.perf_counter()
+    for i in range(reps):
+        fn(inputs[i % len(inputs)])
+    host_ms = (time.perf_counter() - t0) * 1e3
+    stop.record()
+    torch.cuda.synchronize()
+    if spin:
+        check(host_ms < SPIN_CYCLES / 1.98e9 * 1e3,
+              f"host took {host_ms:.2f} ms to queue {reps} calls, longer than the spin")
     return start.elapsed_time(stop) / reps
 
 
@@ -149,87 +192,79 @@ def _bound(n_bytes, flops):
     return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms else "operations")
 
 
-def real_newton_inputs(n_states=8, seed=0):
-    """Newton matrices of the main path (float64, CPU) at perturbed states
-    with BDF coefficients c0 from 0.05 to 50, as the factorization sees
-    them: the equilibrated particle and c_e group blocks, and the Schur core
-    after the group eliminations, permuted so that the nested levels lead."""
-    import numpy as np
-    import torch
-    import petlion_tpu_torch as ptt
-    from petlion_tpu_torch.ops import structured as st
-    from petlion_tpu_torch.ops.plan import FULL_KERNEL_ROUTE, get_plan
-    from petlion_tpu_torch.physics.initial_guess import initial_guess
-    from petlion_tpu_torch.solver import control, linsolve
-    kw = dict(dtype=torch.float64, device="cpu")
-    p = ptt.petlion(ptt.LCO, **kw)
-    plan = get_plan(p.cfg, p.theta_floats(), FULL_KERNEL_ROUTE)
-    L = p.cfg.layout
-    rng = np.random.default_rng(seed)
-    th = {k: v.reshape(1, 1).expand(n_states, 1) for k, v in p.theta.items()}
-    y = initial_guess(torch.as_tensor(rng.uniform(0.1, 1.0, n_states), **kw),
-                      th, p.cfg).numpy()
-    y *= 1.0 + 0.02 * rng.standard_normal(y.shape)
-    for name, scale in (("j", 1e-6), ("Phi_e", 1e-2)):
-        s = L.sl(name)
-        y[:, s] = scale * rng.standard_normal((n_states, s.stop - s.start))
-    y[:, L.sl("I").start] = -1.0
-    y = torch.as_tensor(y)
-    c0 = torch.as_tensor(np.geomspace(0.05, 50.0, n_states), **kw)
-    data = dict(th, _c0=c0[:, None],
-                _const=torch.as_tensor(1e-3 * rng.standard_normal(y.shape)) - c0[:, None] * y)
-    spec = control.ControlSpec("I")
-    value = torch.full((n_states,), -1.0, **kw)
-
-    def g(yy, d):
-        return control.full_residual(spec, value, 0.0, yy,
-                                     d["_c0"] * yy + d["_const"], d, p.cfg)
-
-    JS, last = plan.analytic.compressed(None, y, c0, th, g, data)
-    ds = plan.device_specs(y)
-    _, D = st.eliminate_groups(JS, last, plan.colored, ds)
-    groups = [linsolve._equilibrate(st._extract_A(JS, gt))[0] for gt in ds.groups]
-    return st.permuted_core(D, ds), ds.sizes, groups
-
-
-def phase_k1():
+def phase_k1(D):
     import torch
     from petlion_tpu_torch.ops import gj_kernel as gk
+    from petlion_tpu_torch.solver.linsolve import _equilibrate
     rows = {}
     for B, n in ((1024, 71), (5, 71), (8, 37), (3, 17)):
         A = _equilibrated_inputs(B, n, torch.float32, seed=B * 1000 + n)
         X = gk.gj_inverse_cuda(A)
         P = gk.gj_inverse_blocked(A, bs=gk._best_bs(n))
+        mirror = gk.gj_inverse_inplace(A)
         torch.cuda.synchronize()
         err = float((X - P).abs().max())
+        err_m = float((X - mirror).abs().max())
         eye = torch.eye(n, dtype=torch.float64, device="cuda")
         resid = float((A.double() @ X.double() - eye).abs().amax(dim=(-2, -1)).max())
         print(f"kernel f32 ({B}, {n}): max|kernel - plain| = {err:.3e}, "
-              f"max ||AX - I||inf = {resid:.3e}")
+              f"max|kernel - mirror| = {err_m:.3e}, max ||AX - I||inf = {resid:.3e}")
         check(err <= 2e-4, f"kernel disagrees with plain at ({B}, {n}): {err}")
+        check(err_m <= 2e-4, f"kernel disagrees with its mirror at ({B}, {n}): {err_m}")
         check(resid < 1e-3, f"kernel inverse residual at ({B}, {n}): {resid}")
         rows[(B, n)] = err
     A64 = _equilibrated_inputs(64, 71, torch.float64, seed=64071)
-    err64 = float((gk.gj_inverse_cuda(A64)
-                   - gk.gj_inverse_blocked(A64, bs=gk._best_bs(71))).abs().max())
-    print(f"kernel f64 (64, 71): max|kernel - plain| = {err64:.3e}")
-    check(err64 <= 1e-10, f"float64 kernel disagrees with plain: {err64}")
+    X64 = gk.gj_inverse_cuda(A64)
+    err64 = float((X64 - gk.gj_inverse_blocked(A64, bs=gk._best_bs(71))).abs().max())
+    err64_m = float((X64 - gk.gj_inverse_inplace(A64)).abs().max())
+    print(f"kernel f64 (64, 71): max|kernel - plain| = {err64:.3e}, "
+          f"max|kernel - mirror| = {err64_m:.3e}")
+    check(err64 <= 1e-10 and err64_m <= 1e-10, "float64 kernel disagrees with plain")
+
+    # every size the kernel takes, against the mirror
+    for dtype, n_max, tol in ((torch.float32, 169, 2e-4), (torch.float64, 120, 1e-10)):
+        worst = 0.0
+        for n in range(1, n_max + 1):
+            A = _equilibrated_inputs(3, n, dtype, seed=n)
+            worst = max(worst, float((gk.gj_inverse_cuda(A) - gk.gj_inverse_inplace(A))
+                                     .abs().max()))
+        print(f"kernel {str(dtype)[6:]} n = 1..{n_max} (B = 3): "
+              f"max|kernel - mirror| = {worst:.3e} (tol {tol:g})")
+        check(worst <= tol, f"kernel disagrees with its mirror in {dtype}: {worst}")
+
+    # the Schur cores of real Newton matrices (condition ~4e10)
+    As = _equilibrate(D.to("cuda"))[0].repeat(128, 1, 1).contiguous()
+    ref = gk.gj_inverse_inplace(As)
+    scale = ref.abs().amax(dim=(-2, -1), keepdim=True)
+
+    def rel(X):
+        return float(((X.double() - ref).abs() / scale).max())
+
+    e_k = rel(gk.gj_inverse_cuda(As.float()))
+    e_m = rel(gk.gj_inverse_inplace(As.float()))
+    e_b8 = rel(gk.gj_inverse_blocked(As.float(), bs=8))
+    e_b = rel(gk.gj_inverse_blocked(As.float(), bs=gk._best_bs(71)))
+    e_s = rel(gk.gj_inverse_inplace(As.float(), bs=1))
+    e_64 = float(((gk.gj_inverse_cuda(As) - ref).abs() / scale).max())
+    print(f"K1 real cores {tuple(As.shape)}: f32 error vs f64 / scale: kernel {e_k:.3e}, "
+          f"mirror {e_m:.3e}, blocked bs=8 {e_b8:.3e}, blocked bs={gk._best_bs(71)} "
+          f"{e_b:.3e}, scalar in-place {e_s:.3e}; f64 kernel vs mirror {e_64:.3e}")
+    check(e_k <= 4 * e_m + 1e-5 and e_k <= 4 * e_b8 + 1e-5,
+          f"K1 less accurate than plain on real cores: {e_k}")
+    check(e_64 <= 1e-8, f"K1 float64 disagrees on real cores: {e_64}")
 
     B, n = 1024, 71
-    A = _equilibrated_inputs(B, n, torch.float32, seed=7)
-    ms = cuda_time_ms(lambda: gk.gj_inverse_cuda(A), reps=50)
-    plain_ms = cuda_time_ms(lambda: gk.gj_inverse_blocked(A, bs=gk._best_bs(n)),
-                            reps=10)
-    library_ms = cuda_time_ms(lambda: torch.linalg.inv(A), reps=20)
-    bytes_ms = 2 * B * n * n * 4 / PEAK_BYTES_PER_S * 1e3
-    flops_ms = 2 * n ** 3 * B / PEAK_FP32_FLOP_PER_S * 1e3
-    bound_ms = max(bytes_ms, flops_ms)
-    print(f"kernel timing ({B}, {n}) f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-          f"torch.linalg.inv {library_ms:.4f} ms, bound {bound_ms:.4f} ms "
-          f"(bytes {bytes_ms:.4f}, fp32 ops {flops_ms:.4f})")
+    bufs = [_equilibrated_inputs(B, n, torch.float32, seed=7 + i) for i in range(ROTATING)]
+    ms = device_ms(gk.gj_inverse_cuda, bufs, reps=200)
+    plain_ms = device_ms(lambda A: gk.gj_inverse_blocked(A, bs=gk._best_bs(n)), bufs,
+                         reps=8, spin=False)
+    library_ms = device_ms(lambda A: torch.linalg.inv_ex(A)[0], bufs, reps=8, spin=False)
+    bound_ms, by = _bound(2 * B * n * n * 4, 2 * n ** 3 * B)
+    print(f"kernel timing ({B}, {n}) f32, {ROTATING} rotating inputs: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, torch.linalg.inv_ex {library_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({by}; {bound_ms / ms:.1%} of it reached)")
     return dict(max_abs_err=rows[(1024, 71)], ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms,
-                bound_by="bytes" if bytes_ms >= flops_ms else "operations")
+                library_ms=library_ms, bound_ms=bound_ms, bound_by=by)
 
 
 def phase_k2(groups):
@@ -296,6 +331,7 @@ def _dchain_flops(n, sizes):
 
 
 def phase_k3(Dp, sizes):
+    import numpy as np
     import torch
     from petlion_tpu_torch.ops import dchain as kd
     n = Dp.shape[-1]
@@ -308,32 +344,53 @@ def phase_k3(Dp, sizes):
         got32 = kd.dchain_cuda(D64.float(), sizes)
         plain32 = kd.dchain_plain(D64.float(), sizes)
         got64 = kd.dchain_cuda(D64, sizes)
+        mirror32 = kd.dchain_mirror(D64.float(), sizes)
         torch.cuda.synchronize()
         worst = 0.0
-        for i, (k32, p32, k64, r) in enumerate(zip(got32, plain32, got64, ref)):
+        for i, (k32, p32, m32, k64, r) in enumerate(zip(got32, plain32, mirror32,
+                                                         got64, ref)):
             scale = float(r.abs().max())
             e_k = float((k32.double() - r).abs().max()) / scale
             e_p = float((p32.double() - r).abs().max()) / scale
+            e_m = float((m32.double() - r).abs().max()) / scale
             e_kp = float((k32 - p32).abs().max())
             e_64 = float((k64 - r).abs().max()) / scale
             print(f"K3 B={B} output {i} {tuple(r.shape[1:])}: f32 error vs f64 / scale: "
-                  f"kernel {e_k:.3e}, plain {e_p:.3e}; max|kernel - plain| f32 {e_kp:.3e}; "
-                  f"f64 kernel vs plain / scale {e_64:.3e}")
+                  f"kernel {e_k:.3e}, plain {e_p:.3e}, mirror {e_m:.3e}; max|kernel - "
+                  f"plain| f32 {e_kp:.3e}; f64 kernel vs plain / scale {e_64:.3e}")
             check(e_k <= 4 * e_p + 1e-5,
                   f"K3 output {i} at B={B}: kernel error {e_k} vs plain {e_p}")
             check(e_64 <= 1e-8, f"K3 float64 output {i} at B={B}: {e_64}")
             worst = max(worst, e_kp)
         if B == 1024:
             err_rec = worst
-    D32 = Dp.to("cuda").float().repeat(128, 1, 1).contiguous()
-    ms = cuda_time_ms(lambda: kd.dchain_cuda(D32, sizes), reps=50)
-    plain_ms = cuda_time_ms(lambda: kd.dchain_plain(D32, sizes), reps=10)
-    B = D32.shape[0]
+    # other level sizes the kernel takes, on diagonally dominant cores
+    rng = np.random.default_rng(3)
+    for (B, m, lv), dtype, tol in (
+            ((64, 101, (35, 35)), torch.float32, 1e-4),
+            ((64, 101, (35, 35)), torch.float64, 1e-11),
+            ((16, 100, (10, 33, 5, 20)), torch.float32, 1e-4),
+            ((16, 139, ()), torch.float32, 1e-4), ((16, 98, ()), torch.float64, 1e-11),
+            ((16, 40, (7,)), torch.float64, 1e-11), ((7, 33, (32,)), torch.float32, 1e-4)):
+        Dr = (0.3 * rng.standard_normal((B, m, m))
+              + 15.0 * np.eye(m) * rng.uniform(0.1, 10.0, (B, 1, m)))
+        Dr = torch.as_tensor(Dr, dtype=dtype, device="cuda")
+        worst = max(float((a - b).abs().max()) / float(b.abs().max())
+                    for a, b in zip(kd.dchain_cuda(Dr, lv), kd.dchain_plain(Dr, lv)))
+        print(f"K3 {str(dtype)[6:]} ({B}, {m}, {m}) sizes {lv}: max |kernel - plain| / "
+              f"scale {worst:.3e} (tol {tol:g})")
+        check(worst <= tol, f"K3 disagrees with plain at n={m} sizes {lv} {dtype}: {worst}")
+
+    bufs = [Dp.to("cuda").float().repeat(128, 1, 1).contiguous() for _ in range(ROTATING)]
+    ms = device_ms(lambda D: kd.dchain_cuda(D, sizes), bufs, reps=200)
+    plain_ms = device_ms(lambda D: kd.dchain_plain(D, sizes), bufs, reps=8, spin=False)
+    B = bufs[0].shape[0]
     bound_ms, by = _bound((n * n + out_elems) * 4 * B, _dchain_flops(n, sizes) * B)
-    print(f"K3 timing ({B}, {n}, {n}) sizes {sizes} f32: kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.4f} ms, no single PyTorch call computes the chain, bound "
-          f"{bound_ms:.4f} ms ({by}: {(n * n + out_elems) * 4 * B / 1e6:.1f} MB, "
-          f"{_dchain_flops(n, sizes) * B / 1e9:.3f} GFLOP)")
+    print(f"K3 timing ({B}, {n}, {n}) sizes {sizes} f32, {ROTATING} rotating inputs: "
+          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, no single PyTorch call computes "
+          f"the chain, bound {bound_ms:.4f} ms ({by}: "
+          f"{(n * n + out_elems) * 4 * B / 1e6:.1f} MB, "
+          f"{_dchain_flops(n, sizes) * B / 1e9:.3f} GFLOP; {bound_ms / ms:.1%} of it reached)")
     return dict(max_abs_err=err_rec, ms=ms, plain_ms=plain_ms, library_ms=None,
                 bound_ms=bound_ms, bound_by=by)
 
@@ -402,8 +459,9 @@ def main():
     try:
         card = phase_device()
         phase_build()
-        k1 = phase_k1()
-        Dp, sizes, groups = real_newton_inputs()
+        from petlion_tpu_torch.main_path import newton_matrices
+        D, Dp, sizes, groups = newton_matrices()
+        k1 = phase_k1(D)
         k2 = phase_k2(groups)
         k3 = phase_k3(Dp, sizes)
         launches = phase_main(card)

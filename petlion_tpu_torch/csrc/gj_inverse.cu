@@ -10,85 +10,75 @@
 // at B=1024, n=71: 11 us at the 67 TFLOP/s FP32 peak) against 2*B*n^2*4
 // bytes of input and output (41 MB: 12 us at 3.35 TB/s), so the floor is the
 // memory bound, with compute close behind. A pivot loop is sequential,
-// though: n steps, each a rank-1 update that depends on the previous one.
+// though: n steps, each an update that depends on the previous one, so what
+// limits a simple kernel is instruction issue and barrier latency.
 //
-// Design: one thread block per matrix. The augmented [A | I] (n x 2n, 40 KB
-// in f32 at n=71) lives in dynamic shared memory for the whole elimination,
-// so device memory sees one read of A and one write of A^-1, as on the TPU.
-// Each pivot step has two phases separated by __syncthreads: (1) save the
-// pivot column and the normalised pivot row, (2) the rank-1 update. Only the
-// n+1 columns k..n+k can change at step k (columns left of k are already unit
-// vectors and the identity columns right of n+k are untouched), so phase 2
-// skips the others; the skipped updates are exact no-ops, which keeps the
-// arithmetic equal to the plain version's. No identity padding: that was a
-// TPU tiling device. Many blocks per SM (40 KB each) hide the sync latency.
-// Simple first: no wgmma, no TMA.
+// Design: one thread block per matrix, the matrix in registers (gj_common.cuh:
+// a T x T thread grid, each thread a P x P tile, the in-place Gauss-Jordan
+// inverse eight pivots at a time with two barriers per eight pivots and no
+// divide or modulo in the loop). Device memory sees one read of A and one
+// write of A^-1. Tile shapes are compile-time; the launch picks the smallest
+// that holds n. At n = 71 (T = 8, P = 9: 64 threads, 81 values a thread) a
+// block takes 223 registers a thread and 14 KB of shared memory, so 4 blocks
+// fit on an SM and 1024 matrices run in two waves. Capped at 128 registers
+// for one wave, the tile spilled and the kernel ran 1.5x slower (PERF.md).
+// Simple first: no wgmma (its f32 path is TF32), no TMA.
 
 #include <cuda_runtime.h>
 
+#include "gj_common.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gj_inverse_kernel(const T* __restrict__ A, T* __restrict__ out, int n) {
-    extern __shared__ unsigned char smem_raw[];
-    T* M = reinterpret_cast<T*>(smem_raw);   // n x 2n, row-major, ld = 2n
-    T* colk = M + 2 * n * n;                 // saved pivot column (n)
-    T* rowk = colk + n;                      // normalised pivot row (n + 1)
-    const int ld = 2 * n;
-    const int nn = n * n;
-    const T* a = A + static_cast<size_t>(blockIdx.x) * nn;
-    T* o = out + static_cast<size_t>(blockIdx.x) * nn;
-
-    for (int idx = threadIdx.x; idx < nn; idx += blockDim.x) {
-        const int i = idx / n, j = idx - i * n;
-        M[i * ld + j] = a[idx];
-        M[i * ld + n + j] = (i == j) ? T(1) : T(0);
-    }
-    __syncthreads();
-
-    const int w = n + 1;  // active columns k .. n+k
-    for (int k = 0; k < n; ++k) {
-        const T piv = M[k * ld + k];
-        for (int idx = threadIdx.x; idx < n + w; idx += blockDim.x) {
-            if (idx < n) {
-                colk[idx] = M[idx * ld + k];
-            } else {
-                const int jj = idx - n;
-                rowk[jj] = M[k * ld + k + jj] / piv;
-            }
-        }
-        __syncthreads();
-        for (int idx = threadIdx.x; idx < n * w; idx += blockDim.x) {
-            const int i = idx / w, jj = idx - i * w;
-            const T r = rowk[jj];
-            T* m = &M[i * ld + k + jj];
-            *m = (i == k) ? r : *m - colk[i] * r;
-        }
-        __syncthreads();
-    }
-
-    for (int idx = threadIdx.x; idx < nn; idx += blockDim.x) {
-        const int i = idx / n, j = idx - i * n;
-        o[idx] = M[i * ld + n + j];
-    }
+// float at T = 8 asks for 4 blocks an SM (at most 255 registers a thread)
+template <typename S, int T>
+__host__ __device__ constexpr int min_blocks() {
+    return (sizeof(S) == 4 && T == 8) ? 4 : 1;
 }
 
-template <typename T>
-int launch(const T* A, T* out, int batch, int n, void* stream) {
-    // launches on the caller's current device (the wrapper makes it A's)
-    const size_t smem = (2 * static_cast<size_t>(n) * n + 2 * n + 1) * sizeof(T);
+template <typename S, int T, int P>
+__global__ void __launch_bounds__(T * T, min_blocks<S, T>())
+gj_inverse_kernel(const S* __restrict__ A, S* __restrict__ out, int n) {
+    extern __shared__ __align__(16) unsigned char smem_raw[];
+    S* sm = reinterpret_cast<S*>(smem_raw);   // gjc::smem_elems<T, P>()
+    const int ty = threadIdx.x / T, tx = threadIdx.x % T;
+    const size_t off = static_cast<size_t>(blockIdx.x) * n * n;
+    S v[P][P];
+    gjc::tile_load<S, T, P>(v, A + off, n, n, ty, tx);
+    gjc::tile_gj<S, T, P>(v, n, sm, ty, tx);
+    gjc::tile_store<S, T, P>(v, out + off, n, n, ty, tx);
+}
+
+template <typename S, int T, int P>
+int launch_tile(const S* A, S* out, int batch, int n, cudaStream_t stream) {
+    const size_t smem = gjc::smem_elems<T, P>() * sizeof(S);
     if (smem > 48 * 1024) {
-        const cudaError_t err = cudaFuncSetAttribute(gj_inverse_kernel<T>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   static_cast<int>(smem));
+        const cudaError_t err = cudaFuncSetAttribute(
+            gj_inverse_kernel<S, T, P>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+            static_cast<int>(smem));
         if (err != cudaSuccess) return static_cast<int>(err);
     }
-    gj_inverse_kernel<T><<<batch, kThreads, smem,
-                           static_cast<cudaStream_t>(stream)>>>(A, out, n);
+    gj_inverse_kernel<S, T, P><<<batch, T * T, smem, stream>>>(A, out, n);
     return static_cast<int>(cudaGetLastError());
+}
+
+// largest n each element type takes (ops/gj_kernel.py MAX_N)
+template <typename S>
+constexpr int max_n() { return sizeof(S) == 4 ? 176 : 128; }
+
+template <typename S>
+int launch(const S* A, S* out, int batch, int n, void* stream_) {
+    // launches on the caller's current device (the wrapper makes it A's)
+    const cudaStream_t stream = static_cast<cudaStream_t>(stream_);
+    if (n < 1 || n > max_n<S>() || batch < 1)
+        return static_cast<int>(cudaErrorInvalidValue);
+    if (n <= 16) return launch_tile<S, 8, 2>(A, out, batch, n, stream);
+    if (n <= 40) return launch_tile<S, 8, 5>(A, out, batch, n, stream);
+    if (n <= 72) return launch_tile<S, 8, 9>(A, out, batch, n, stream);
+    if (n <= 128) return launch_tile<S, 16, 8>(A, out, batch, n, stream);
+    if constexpr (max_n<S>() > 128)
+        return launch_tile<S, 16, 11>(A, out, batch, n, stream);
+    return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace

@@ -16,7 +16,9 @@ published values. It runs on two routes (``ops/plan.py:Route``):
   in consistent initialization.
 
 ``COLORED`` is the colored-sweep route (``PETLION_JACA=0``), kept for
-comparison.
+comparison. ``newton_matrices`` builds the Newton matrices of the main path
+that the kernels see, for the tests and ``chip_smoke.py`` to hold the kernels
+on real inputs.
 ``chip_smoke.py`` checks these programs; run as a script,
 
     python -m petlion_tpu_torch.main_path [path1|path2 ...]
@@ -97,6 +99,48 @@ def warm_walls(p: Model, seed: int, route: Route = PATH1):
         walls.append(wall)
     med = statistics.median(walls)
     return res, walls, med, (max(walls) - min(walls)) / med
+
+
+def newton_matrices(n_states: int = 8, seed: int = 0):
+    """Newton matrices of the main path (float64, CPU) at perturbed states
+    with BDF coefficients c0 from 0.05 to 50, as the factorization sees
+    them: (core, permuted, sizes, groups) — the Schur core after the group
+    eliminations (n_states, 71, 71), the same permuted so that the nested
+    levels lead, the level sizes, and the equilibrated particle and c_e
+    group blocks."""
+    from .ops import structured as st
+    from .ops.plan import get_plan
+    from .physics.initial_guess import initial_guess
+    from .solver import control, linsolve
+    kw = dict(dtype=torch.float64, device="cpu")
+    p = petlion(LCO, **kw)
+    plan = get_plan(p.cfg, p.theta_floats(), FULL_KERNEL_ROUTE)
+    L = p.cfg.layout
+    rng = np.random.default_rng(seed)
+    th = {k: v.reshape(1, 1).expand(n_states, 1) for k, v in p.theta.items()}
+    y = initial_guess(torch.as_tensor(rng.uniform(0.1, 1.0, n_states), **kw),
+                      th, p.cfg).numpy()
+    y *= 1.0 + 0.02 * rng.standard_normal(y.shape)
+    for name, scale in (("j", 1e-6), ("Phi_e", 1e-2)):
+        s = L.sl(name)
+        y[:, s] = scale * rng.standard_normal((n_states, s.stop - s.start))
+    y[:, L.sl("I").start] = -1.0
+    y = torch.as_tensor(y)
+    c0 = torch.as_tensor(np.geomspace(0.05, 50.0, n_states), **kw)
+    data = dict(th, _c0=c0[:, None],
+                _const=torch.as_tensor(1e-3 * rng.standard_normal(y.shape)) - c0[:, None] * y)
+    spec = control.ControlSpec("I")
+    value = torch.full((n_states,), -1.0, **kw)
+
+    def g(yy, d):
+        return control.full_residual(spec, value, 0.0, yy,
+                                     d["_c0"] * yy + d["_const"], d, p.cfg)
+
+    JS, last = plan.analytic.compressed(None, y, c0, th, g, data)
+    ds = plan.device_specs(y)
+    _, D = st.eliminate_groups(JS, last, plan.colored, ds)
+    groups = [linsolve._equilibrate(st._extract_A(JS, gt))[0] for gt in ds.groups]
+    return D, st.permuted_core(D, ds), ds.sizes, groups
 
 
 def _device_us(evt):

@@ -12,10 +12,14 @@ of what is left. Outputs, per level: invA (B, nk, nk), AinvB (B, nk, r),
 C (B, r, nk); then the core inverse (B, r_last, r_last).
 
 On the card it is ``csrc/dchain.cu``: one thread block per cell, the whole
-core in shared memory through every level (the source says what bounds it).
+core in shared memory through every level, each inverse by K1's
+register-tiled elimination (the source says what bounds it).
 ``dchain_plain`` follows ``_dchain_kernel`` step by step with batched torch
 operations; ``dchain_hot`` takes it for a CPU tensor, and a CUDA tensor
-launches the kernel or raises.
+launches the kernel or raises. ``dchain_mirror`` is the same chain in the
+kernel's order of operations (reciprocal scalings, the in-place
+Gauss-Jordan), which the tests and ``chip_smoke.py`` hold the kernel
+against.
 """
 
 from __future__ import annotations
@@ -24,9 +28,12 @@ import ctypes
 
 import torch
 
-from .gj_kernel import MAX_SMEM_BYTES, check_launch, gj_inverse, library
+from .gj_kernel import (MAX_SMEM_BYTES, check_launch, gj_inverse,
+                        gj_inverse_inplace, library)
 
 MAX_LEVELS = 4      # csrc/dchain.cu kMaxLevels
+# largest inverse of the chain the kernel takes (csrc/dchain.cu max_m)
+MAX_M = {torch.float32: 144, torch.float64: 112}
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _LAUNCHERS = {f"dchain_{t}": [_P, ctypes.POINTER(ctypes.c_void_p),
@@ -52,6 +59,17 @@ def inv_equil(A, invert=gj_inverse):
     return invert(As) / colA[..., :, None] / rowA[..., None, :]
 
 
+def inv_equil_inplace(A):
+    """``inv_equil`` in the kernel's order of operations: reciprocal
+    scalings rc = 1/col and rr = 1/row, As = (A·rc)·rr, K1's in-place
+    Gauss-Jordan eight pivots at a time, and the fold (inv_s·rc_i)·rr_j."""
+    rc = 1.0 / torch.clamp_min(A.abs().amax(dim=-2), 1e-30)
+    As = A * rc[..., None, :]
+    rr = 1.0 / torch.clamp_min(As.abs().amax(dim=-1), 1e-30)
+    As = As * rr[..., :, None]
+    return gj_inverse_inplace(As) * rc[..., :, None] * rr[..., None, :]
+
+
 def out_shapes(n: int, sizes) -> list:
     """Per-cell shapes of the chain's outputs, in order."""
     shapes, rest = [], n
@@ -63,28 +81,55 @@ def out_shapes(n: int, sizes) -> list:
     return shapes
 
 
-def dchain_plain(D, sizes):
-    """The chain on a (B, n, n) permuted core, batched torch operations."""
+def dchain_plain(D, sizes, inverse=inv_equil):
+    """The chain on a (B, n, n) permuted core, batched torch operations;
+    `inverse` forms each level's and the rest's folded inverse."""
     outs = []
     for nk in sizes:
         A, Bm, C = D[:, :nk, :nk], D[:, :nk, nk:], D[:, nk:, :nk]
-        invA = inv_equil(A)
+        invA = inverse(A)
         AinvB = torch.matmul(invA, Bm)
         D = D[:, nk:, nk:] - torch.matmul(C, AinvB)
         outs += [invA, AinvB, C.contiguous()]
-    outs.append(inv_equil(D))
+    outs.append(inverse(D))
     return tuple(outs)
 
 
+def dchain_mirror(D, sizes):
+    """The chain in the kernel's order of operations."""
+    return dchain_plain(D, sizes, inverse=inv_equil_inplace)
+
+
+def _inverse_sizes(n: int, sizes) -> list:
+    """Sizes of the chain's inverses: each level, then the rest."""
+    return list(sizes) + [n - sum(sizes)]
+
+
 def smem_bytes(n: int, sizes, dtype: torch.dtype) -> int:
-    """Shared memory of one block: the core, the augmented [As | I] of the
-    largest inverse, the AinvB panel and the pivot/scaling vectors."""
-    m, m_max, panel = n, 0, 1
+    """Shared memory of one block (csrc/dchain.cu launch_plan): the pivot
+    buffers of the tile grid the largest inverse takes, sharing room with
+    the AinvB panel; the core; the scalings."""
+    m, panel = n, 1
     for nk in sizes:
-        m_max, panel = max(m_max, nk), max(panel, nk * (m - nk))
+        panel = max(panel, nk * (m - nk))
         m -= nk
-    m_max = max(m_max, m)
-    return (n * n + 2 * m_max * m_max + panel + 4 * m_max + 1) * dtype.itemsize
+    big = max(_inverse_sizes(n, sizes))
+    T, P = (8, 4) if big <= 32 else (16, 4) if big <= 64 else (16, 7) if big <= 112 else (16, 9)
+    pivot_buffers = 4 * T * P * 12 + (T * T // 32) * 64     # gj_common.cuh smem_elems
+    return (max(panel, pivot_buffers) + n * n + 2 * n) * dtype.itemsize
+
+
+def check_sizes(n: int, sizes, dtype: torch.dtype):
+    """Raise ValueError unless K3 takes a core of size n with these level
+    sizes in `dtype`."""
+    if len(sizes) > MAX_LEVELS or any(s < 1 for s in sizes) or sum(sizes) >= n:
+        raise ValueError(f"dchain_cuda: level sizes {sizes} do not fit n={n}")
+    if max(_inverse_sizes(n, sizes)) > MAX_M[dtype]:
+        raise ValueError(f"dchain_cuda: inverses of sizes {_inverse_sizes(n, sizes)} "
+                         f"exceed {MAX_M[dtype]} in {dtype}")
+    if smem_bytes(n, sizes, dtype) > MAX_SMEM_BYTES:
+        raise ValueError(f"dchain_cuda: n={n} in {dtype} needs "
+                         f"{smem_bytes(n, sizes, dtype)} B of shared memory")
 
 
 def dchain_cuda(D, sizes):
@@ -99,11 +144,7 @@ def dchain_cuda(D, sizes):
         raise ValueError("dchain_cuda takes a contiguous tensor")
     sizes = tuple(int(s) for s in sizes)
     B, n = D.shape[0], D.shape[1]
-    if len(sizes) > MAX_LEVELS or any(s < 1 for s in sizes) or sum(sizes) >= n:
-        raise ValueError(f"dchain_cuda: level sizes {sizes} do not fit n={n}")
-    if smem_bytes(n, sizes, D.dtype) > MAX_SMEM_BYTES:
-        raise ValueError(f"dchain_cuda: n={n} in {D.dtype} needs "
-                         f"{smem_bytes(n, sizes, D.dtype)} B of shared memory")
+    check_sizes(n, sizes, D.dtype)
     outs = tuple(torch.empty((B,) + s, dtype=D.dtype, device=D.device)
                  for s in out_shapes(n, sizes))
     if B == 0:

@@ -3,18 +3,22 @@ and the build of every CUDA kernel of the port.
 
 Counterpart of the JAX package's ``ops/pallas_gj.py``. The TPU kernel
 ``_gj_kernel`` becomes ``csrc/gj_inverse.cu`` (CUDA C++ for sm_90a, one
-thread block per matrix with [A | I] in shared memory; the source says what
-bounds it and why it is shaped so).
+thread block per matrix, the matrix in register tiles and inverted in place
+by ``csrc/gj_common.cuh``; the sources say what bounds it and why it is
+shaped so).
 
 Every ``csrc/<name>.cu`` is compiled with ``nvcc`` into a shared library with
 a plain C interface, at first use (or all together by ``compile_all``), into
 ``build/kernels/`` at the repository root, one library per source version,
-and bound with ``ctypes`` (``library``). ``LAUNCHES`` counts the launches of
+and bound with ``ctypes`` (``library``); the version tag covers the source
+and every shared ``csrc/*.cuh`` header. ``LAUNCHES`` counts the launches of
 each kernel.
 
 Beside the kernel live the plain PyTorch versions of the same function:
-``gj_inverse`` (scalar pivot loop) and ``gj_inverse_blocked`` (the JAX
-package's ``linsolve.gj_inverse_blocked``). ``gj_inverse_hot`` dispatches on
+``gj_inverse`` (scalar pivot loop), ``gj_inverse_blocked`` (the JAX
+package's ``linsolve.gj_inverse_blocked``) and ``gj_inverse_inplace`` (the
+kernel's in-place pivot loop in its order of operations, which the tests and
+``chip_smoke.py`` hold the kernel against). ``gj_inverse_hot`` dispatches on
 the tensor's device: a CPU tensor takes the plain blocked version, a CUDA
 tensor launches the kernel or raises — there is no fallback.
 """
@@ -37,6 +41,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # shared memory one block may use on Hopper (227 KB, opt-in above 48 KB)
 MAX_SMEM_BYTES = 232448
+# largest n the kernel's register tiles take (csrc/gj_inverse.cu max_n)
+MAX_N = {torch.float32: 176, torch.float64: 128}
 
 # launches of each kernel; reset with reset_launch_counts()
 LAUNCHES = {name: 0 for name in KERNEL_SOURCES}
@@ -64,6 +70,38 @@ def gj_inverse(A):
         M = M - col[..., :, None] * row[..., None, :]
         M[..., k, :] = row
     return M[..., :, n:]
+
+
+def gj_inverse_inplace(A, bs: int = 8):
+    """Pivot-free Gauss-Jordan inverse formed in place, `bs` pivots at a
+    time, (..., n, n): at bs = 8 the order of operations of the kernels
+    (csrc/gj_common.cuh, for K1 and every inverse of K3).
+    n is padded to a multiple of bs with an identity tail. For the pivot set
+    K: P = the bs = 1 inverse of the pivot block, R = P·A[K, :],
+    A ← A − A[:, K]·R, then A[K, :] = R, A[:, K] = −A[:, K]·P, A[K, K] = P.
+    At bs = 1 this is the scalar loop (p = 1/a_kk; row a_kj·p; others
+    a_ij − a_ik·(a_kj·p); column −a_ik·p; pivot p). The kernels sum each
+    product chain in one fma chain; this version rounds products and sums
+    apart (torch.matmul)."""
+    n = A.shape[-1]
+    n_pad = -(-n // bs) * bs
+    M = torch.zeros(A.shape[:-2] + (n_pad, n_pad), dtype=A.dtype, device=A.device)
+    M[..., :n, :n] = A
+    pad = torch.arange(n, n_pad, device=A.device)
+    M[..., pad, pad] = 1.0
+    for c0 in range(0, n_pad, bs):
+        K = slice(c0, c0 + bs)
+        if bs == 1:
+            P = 1.0 / M[..., K, K]
+        else:
+            P = gj_inverse_inplace(M[..., K, K], bs=1)
+        R = torch.matmul(P, M[..., K, :])
+        C = M[..., :, K].clone()
+        M = M - torch.matmul(C, R)
+        M[..., K, :] = R
+        M[..., :, K] = -torch.matmul(C, P)
+        M[..., K, K] = P
+    return M[..., :n, :n]
 
 
 def gj_inverse_blocked(A, bs: int = 8):
@@ -129,8 +167,11 @@ def _nvcc() -> str:
 
 
 def _so_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    tag = h.hexdigest()[:12]
     return BUILD_DIR / f"lib{name}_{tag}.so"
 
 
@@ -195,11 +236,6 @@ def build():
     return library("gj_inverse", _GJ_LAUNCHERS)
 
 
-def smem_bytes(n: int, dtype: torch.dtype) -> int:
-    """Shared memory of one block: [A | I] plus the pivot column and row."""
-    return (2 * n * n + 2 * n + 1) * dtype.itemsize
-
-
 def gj_inverse_cuda(A):
     """Launch the kernel on a contiguous CUDA (B, n, n) f32/f64 tensor."""
     if A.device.type != "cuda":
@@ -211,10 +247,9 @@ def gj_inverse_cuda(A):
     if not A.is_contiguous():
         raise ValueError("gj_inverse_cuda takes a contiguous tensor")
     B, n = A.shape[0], A.shape[1]
-    if smem_bytes(n, A.dtype) > MAX_SMEM_BYTES:
-        raise ValueError(f"n={n} in {A.dtype} needs {smem_bytes(n, A.dtype)} B "
-                         f"of shared memory, more than a block has "
-                         f"({MAX_SMEM_BYTES} B)")
+    if n > MAX_N[A.dtype]:
+        raise ValueError(f"gj_inverse_cuda takes n <= {MAX_N[A.dtype]} in "
+                         f"{A.dtype}, got n={n}")
     out = torch.empty_like(A)
     if B == 0 or n == 0:
         return out

@@ -27,11 +27,14 @@ def _need_card():
         pytest.skip("needs an NVIDIA GPU: the CUDA kernel has no CPU mode")
 
 
-@pytest.mark.parametrize("dtype, tol", [(torch.float32, 2e-4),
-                                        (torch.float64, 1e-10)])
-def test_kernel_matches_plain_on_card(dtype, tol):
+@pytest.mark.parametrize("dtype, n, tol",
+                         [(torch.float32, n, 2e-4) for n in (17, 31, 71, 128, 169)]
+                         + [(torch.float64, n, 1e-10) for n in (71, 120)])
+def test_kernel_matches_plain_on_card(dtype, n, tol):
+    """K1 against its mirror (the same order of operations) and the plain
+    blocked version, at ragged batches, each tile shape of the kernel."""
     _need_card()
-    for B, n in ((1024, 71), (5, 71), (8, 37), (3, 17)):
+    for B in (5, 1024):
         rng = np.random.default_rng(B + n)
         A = rng.standard_normal((B, n, n)) + 20.0 * np.eye(n)
         A = torch.as_tensor(A, dtype=dtype, device="cuda")
@@ -39,10 +42,14 @@ def test_kernel_matches_plain_on_card(dtype, tol):
         before = gk.LAUNCHES["gj_inverse"]
         got = gk.gj_inverse_hot(A)
         assert gk.LAUNCHES["gj_inverse"] == before + 1
+        assert float((got - gk.gj_inverse_inplace(A)).abs().max()) <= tol
         want = gk.gj_inverse_blocked(A, bs=gk._best_bs(n))
         assert float((got - want).abs().max()) <= tol
     with pytest.raises(ValueError):
         gk.gj_inverse_cuda(torch.zeros(2, 71, 71, device="cuda").transpose(1, 2))
+    with pytest.raises(ValueError):
+        gk.gj_inverse_cuda(torch.zeros(2, gk.MAX_N[dtype] + 1, gk.MAX_N[dtype] + 1,
+                                       dtype=dtype, device="cuda"))
 
 
 @pytest.mark.parametrize("dtype, tol", [(torch.float32, 2e-4),
@@ -62,23 +69,26 @@ def test_gj_blocks_matches_plain_on_card(dtype, tol):
         kb.gj_blocks_cuda(torch.zeros(2, 33, 33, device="cuda"))
 
 
+@pytest.mark.parametrize("B, n, sizes", [(1024, 71, (20, 20)), (5, 71, (20, 20)),
+                                         (3, 40, (7,)), (2, 25, ()),
+                                         (64, 101, (35, 35))])
 @pytest.mark.parametrize("dtype, tol", [(torch.float32, 1e-4),
                                         (torch.float64, 1e-11)])
-def test_dchain_matches_plain_on_card(dtype, tol):
+def test_dchain_matches_plain_on_card(dtype, tol, B, n, sizes):
     """Diagonally dominant cores (well conditioned, unlike the real Φ_s
-    level): every output within `tol` of its scale."""
+    level): every output within `tol` of its scale, against the plain chain
+    and against its mirror; (35, 35) takes the 16×16 tile grid."""
     _need_card()
-    for B, n, sizes in ((1024, 71, (20, 20)), (5, 71, (20, 20)), (3, 40, (7,)),
-                        (2, 25, ())):
-        rng = np.random.default_rng(B + n)
-        D = (0.3 * rng.standard_normal((B, n, n))
-             + 15.0 * np.eye(n) * rng.uniform(0.1, 10.0, (B, 1, n)))
-        D = torch.as_tensor(D, dtype=dtype, device="cuda")
-        before = gk.LAUNCHES["dchain"]
-        got = kd.dchain_hot(D, sizes)
-        assert gk.LAUNCHES["dchain"] == before + 1
-        for a, b in zip(got, kd.dchain_plain(D, sizes)):
-            assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+    rng = np.random.default_rng(B + n)
+    D = (0.3 * rng.standard_normal((B, n, n))
+         + 15.0 * np.eye(n) * rng.uniform(0.1, 10.0, (B, 1, n)))
+    D = torch.as_tensor(D, dtype=dtype, device="cuda")
+    before = gk.LAUNCHES["dchain"]
+    got = kd.dchain_hot(D, sizes)
+    assert gk.LAUNCHES["dchain"] == before + 1
+    for a, b, c in zip(got, kd.dchain_plain(D, sizes), kd.dchain_mirror(D, sizes)):
+        assert float((a - b).abs().max()) <= tol * float(b.abs().max())
+        assert float((a - c).abs().max()) <= tol * float(c.abs().max())
 
 
 def test_float32_cuda_run_refused_under_tf32():

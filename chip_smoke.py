@@ -24,10 +24,13 @@ Phases, each of which must pass (any failure exits non-zero and prints no
    each matrix's scale, at most 4× that of the plain float32 mirror and of
    the blocked version at the TPU kernel's block width 8, plus 1e-5;
    K2 gj_blocks at (M, n) = (10240, 10), (1024, 30) and the odd sizes
-   (7, 10), (7, 17), (7, 30) in float32 (max |Δ| ≤ 2e-4, ‖AX − I‖∞ < 1e-3)
-   and (10240, 10), (1024, 30) in float64 (≤ 1e-10), random diagonally
-   dominant matrices, equilibrated; then the particle and c_e blocks of
-   real Newton matrices;
+   (7, 10), (7, 17), (7, 30) in float32 (max |Δ| ≤ 2e-4 against the plain
+   version and against its mirror gj_blocks_mirror, ‖AX − I‖∞ < 1e-3) and
+   (10240, 10), (1024, 30) in float64 (≤ 1e-10), random diagonally dominant
+   matrices, equilibrated; every n from 1 to 32 in float32 and float64
+   against the mirror and the plain version; then the particle and c_e
+   blocks of real Newton matrices (float32 error against float64 at most 4×
+   the plain float32 version's plus 1e-5);
    K3 dchain on permuted Schur cores of real Newton matrices of the main
    path (8 states, tiled to 1024 cells, and 5 cells) with level sizes
    (20, 20): in float32 every output must be as close to the float64 chain
@@ -39,9 +42,10 @@ Phases, each of which must pass (any failure exits non-zero and prints no
    then diagonally dominant cores at other level sizes, some with levels
    above 32 (the 16×16 tile grid), against the plain chain.
    K1 and K3 are timed over four rotating input buffers (82 MB in all, more
-   than the 50 MB L2) behind a spin kernel that holds the stream while the
-   host queues the launches, so the time is the device's; K2 is timed as
-   before (one input, CUDA events around back-to-back launches);
+   than the 50 MB L2), K2 and torch.linalg.inv_ex at K2's two main-path
+   shapes over sixteen (60-66 MB), behind a spin kernel that holds the
+   stream while the host queues the launches, so the time is the device's;
+   the host µs per wrapper call are printed beside it;
 4. main paths (petlion_tpu_torch/main_path.py): `batch_simulate` of 1024 LCO
    cells, a 1C discharge from SOC 1 in float32 with the benchmark options,
    D_sp/D_sn/k_p/k_n perturbed ±5% per cell from a numpy seed (cell 0
@@ -77,7 +81,8 @@ PEAK_FP32_FLOP_PER_S = 67e12
 # spin that holds the stream while the host queues timed launches: 1.2e8
 # cycles, at least 60 ms at the H100's 1.98 GHz boost clock
 SPIN_CYCLES = 120_000_000
-ROTATING = 4        # input buffers rotated in the K1 and K3 timings
+ROTATING = 4        # input buffers rotated in the K1 and K3 timings (82 MB)
+K2_ROTATING = 16    # and in K2's (60-66 MB at either main-path shape)
 
 
 class SmokeFailure(Exception):
@@ -105,12 +110,13 @@ def cuda_time_ms(fn, reps, warmup=3):
 
 
 def device_ms(fn, inputs, reps, spin=True):
-    """Device ms per call of fn, rotating over `inputs` (so that the reads
-    come from device memory when the inputs exceed the L2). With `spin`, a
-    spin kernel holds the stream while the host queues the calls, so CUDA
-    events time the queued calls alone (checked: the host must queue them
-    faster than the spin lasts); without, as cuda_time_ms (for the plain
-    versions, whose host work is part of what they cost)."""
+    """(device ms per call of fn, host µs per call), rotating over `inputs`
+    (so that the reads come from device memory when the inputs exceed the
+    L2). With `spin`, a spin kernel holds the stream while the host queues
+    the calls, so CUDA events time the queued calls alone (checked: the host
+    must queue them faster than the spin lasts); without, as cuda_time_ms
+    (for the plain versions, whose host work is part of what they cost).
+    The host µs are the wall of the loop that queues the calls, per call."""
     import torch
     for x in inputs:
         fn(x)
@@ -129,7 +135,22 @@ def device_ms(fn, inputs, reps, spin=True):
     if spin:
         check(host_ms < SPIN_CYCLES / 1.98e9 * 1e3,
               f"host took {host_ms:.2f} ms to queue {reps} calls, longer than the spin")
-    return start.elapsed_time(stop) / reps
+    return start.elapsed_time(stop) / reps, host_ms * 1e3 / reps
+
+
+def waits_for_device(fn, x):
+    """Whether one call of fn waits for the device on the host (a spin
+    queued before it holds the call's return); such a call cannot be timed
+    behind the spin."""
+    import torch
+    fn(x)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    t0 = time.perf_counter()
+    fn(x)
+    waited = time.perf_counter() - t0 > 0.5 * SPIN_CYCLES / 1.98e9
+    torch.cuda.synchronize()
+    return waited
 
 
 def phase_device():
@@ -255,14 +276,15 @@ def phase_k1(D):
 
     B, n = 1024, 71
     bufs = [_equilibrated_inputs(B, n, torch.float32, seed=7 + i) for i in range(ROTATING)]
-    ms = device_ms(gk.gj_inverse_cuda, bufs, reps=200)
-    plain_ms = device_ms(lambda A: gk.gj_inverse_blocked(A, bs=gk._best_bs(n)), bufs,
-                         reps=8, spin=False)
-    library_ms = device_ms(lambda A: torch.linalg.inv_ex(A)[0], bufs, reps=8, spin=False)
+    ms, host_us = device_ms(gk.gj_inverse_cuda, bufs, reps=200)
+    plain_ms, _ = device_ms(lambda A: gk.gj_inverse_blocked(A, bs=gk._best_bs(n)), bufs,
+                            reps=8, spin=False)
+    library_ms, _ = device_ms(lambda A: torch.linalg.inv_ex(A)[0], bufs, reps=8, spin=False)
     bound_ms, by = _bound(2 * B * n * n * 4, 2 * n ** 3 * B)
     print(f"kernel timing ({B}, {n}) f32, {ROTATING} rotating inputs: kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, torch.linalg.inv_ex {library_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({by}; {bound_ms / ms:.1%} of it reached)")
+          f"{bound_ms:.4f} ms ({by}; {bound_ms / ms:.1%} of it reached); host "
+          f"{host_us:.1f} us per gj_inverse_cuda call")
     return dict(max_abs_err=rows[(1024, 71)], ms=ms, plain_ms=plain_ms,
                 library_ms=library_ms, bound_ms=bound_ms, bound_by=by)
 
@@ -279,15 +301,31 @@ def phase_k2(groups):
         A = _equilibrated_inputs(M, n, dtype, seed=M * 100 + n)
         X = kb.gj_blocks_cuda(A)
         P = kb.gj_blocks_plain(A)
+        mirror = kb.gj_blocks_mirror(A)
         torch.cuda.synchronize()
         err = float((X - P).abs().max())
+        err_m = float((X - mirror).abs().max())
         eye = torch.eye(n, dtype=torch.float64, device="cuda")
         resid = float((A.double() @ X.double() - eye).abs().amax(dim=(-2, -1)).max())
         print(f"K2 {str(dtype)[6:]} ({M}, {n}, {n}): max|kernel - plain| = {err:.3e}, "
-              f"max ||AX - I||inf = {resid:.3e} (tol {tol:g})")
+              f"max|kernel - mirror| = {err_m:.3e}, max ||AX - I||inf = {resid:.3e} "
+              f"(tol {tol:g})")
         check(err <= tol, f"K2 disagrees with plain at ({M}, {n}) {dtype}: {err}")
+        check(err_m <= tol, f"K2 disagrees with its mirror at ({M}, {n}) {dtype}: {err_m}")
         check(resid < 1e-3, f"K2 inverse residual at ({M}, {n}) {dtype}: {resid}")
         errs[(M, n, dtype)] = err
+    # every size the kernel takes, against the mirror and the plain version
+    # (37 matrices: several warps and a ragged last one)
+    for dtype, tol in ((torch.float32, 2e-4), (torch.float64, 1e-10)):
+        worst_m = worst_p = 0.0
+        for n in range(1, kb.MAX_N + 1):
+            A = _equilibrated_inputs(37, n, dtype, seed=n)
+            X = kb.gj_blocks_cuda(A)
+            worst_m = max(worst_m, float((X - kb.gj_blocks_mirror(A)).abs().max()))
+            worst_p = max(worst_p, float((X - kb.gj_blocks_plain(A)).abs().max()))
+        print(f"K2 {str(dtype)[6:]} n = 1..{kb.MAX_N} (M = 37): max|kernel - mirror| = "
+              f"{worst_m:.3e}, max|kernel - plain| = {worst_p:.3e} (tol {tol:g})")
+        check(worst_m <= tol and worst_p <= tol, f"K2 disagrees at some n in {dtype}")
     # blocks of real Newton matrices: as close to the float64 inverse as the
     # plain float32 version is
     for G in groups:
@@ -297,25 +335,40 @@ def phase_k2(groups):
         scale = float(ref.abs().max())
         e_k = float((kb.gj_blocks_cuda(A64.float()).double() - ref).abs().max()) / scale
         e_p = float((kb.gj_blocks_plain(A64.float()).double() - ref).abs().max()) / scale
+        e_m = float((kb.gj_blocks_mirror(A64.float()).double() - ref).abs().max()) / scale
         e_64 = float((kb.gj_blocks_cuda(A64) - ref).abs().max()) / scale
         print(f"K2 real blocks {tuple(A64.shape)}: f32 error vs f64 / scale: kernel "
-              f"{e_k:.3e}, plain {e_p:.3e}; f64 kernel vs plain {e_64:.3e}")
+              f"{e_k:.3e}, plain {e_p:.3e}, mirror {e_m:.3e}; f64 kernel vs plain {e_64:.3e}")
         check(e_k <= 4 * e_p + 1e-5, f"K2 less accurate than plain on real blocks: {e_k}")
         check(e_64 <= 1e-10, f"K2 float64 disagrees on real blocks: {e_64}")
 
-    timings = {}
+    shapes = []
     for M, n in ((10240, 10), (1024, 30)):
-        A = _equilibrated_inputs(M, n, torch.float32, seed=3)
-        ms = cuda_time_ms(lambda: kb.gj_blocks_cuda(A), reps=100)
-        plain_ms = cuda_time_ms(lambda: kb.gj_blocks_plain(A), reps=10)
-        library_ms = cuda_time_ms(lambda: torch.linalg.inv(A), reps=20)
-        bound_ms, by = _bound(2 * M * n * n * 4, 2 * n ** 3 * M)
-        print(f"K2 timing ({M}, {n}, {n}) f32: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-              f"torch.linalg.inv {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({by})")
-        timings[(M, n)] = (ms, plain_ms, library_ms, bound_ms, by)
-    ms, plain_ms, library_ms, bound_ms, by = timings[(10240, 10)]
-    return dict(max_abs_err=errs[(10240, 10, torch.float32)], ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=by)
+        bufs = [_equilibrated_inputs(M, n, torch.float32, seed=3 + i)
+                for i in range(K2_ROTATING)]
+        ms, host_us = device_ms(kb.gj_blocks_cuda, bufs, reps=200)
+        b2b_ms = cuda_time_ms(lambda: kb.gj_blocks_cuda(bufs[0]), reps=100)
+        plain_ms, _ = device_ms(kb.gj_blocks_plain, bufs, reps=8, spin=False)
+        inv_ex = lambda A: torch.linalg.inv_ex(A)[0]  # noqa: E731
+        # at n = 30 inv_ex synchronises the device itself: timed without the
+        # spin, its host waits are part of what it costs
+        lib_spin = not waits_for_device(inv_ex, bufs[0])
+        library_ms, lib_host_us = device_ms(inv_ex, bufs, reps=20, spin=lib_spin)
+        n_bytes = 2 * M * n * n * 4
+        bound_ms, by = _bound(n_bytes, 2 * n ** 3 * M)
+        print(f"K2 timing ({M}, {n}, {n}) f32, {K2_ROTATING} rotating inputs "
+              f"({K2_ROTATING * n_bytes / 2e6:.1f} MB): kernel {ms:.4f} ms (back to back "
+              f"on one input, no spin: {b2b_ms:.4f} ms), plain {plain_ms:.4f} ms, "
+              f"torch.linalg.inv_ex {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}: "
+              f"{n_bytes / 1e6:.1f} MB; {bound_ms / ms:.1%} of it reached); host "
+              f"{host_us:.1f} us per gj_blocks_cuda call, {lib_host_us:.1f} us per inv_ex call"
+              f"{'' if lib_spin else ' (inv_ex waits for the device: timed without the spin)'}")
+        shapes.append(dict(shape=[M, n, n], ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                           bound_ms=bound_ms, bound_by=by))
+    return dict(max_abs_err=errs[(10240, 10, torch.float32)],
+                **{k: shapes[0][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                             "bound_by")},
+                shapes=shapes)
 
 
 def _dchain_flops(n, sizes):
@@ -382,15 +435,16 @@ def phase_k3(Dp, sizes):
         check(worst <= tol, f"K3 disagrees with plain at n={m} sizes {lv} {dtype}: {worst}")
 
     bufs = [Dp.to("cuda").float().repeat(128, 1, 1).contiguous() for _ in range(ROTATING)]
-    ms = device_ms(lambda D: kd.dchain_cuda(D, sizes), bufs, reps=200)
-    plain_ms = device_ms(lambda D: kd.dchain_plain(D, sizes), bufs, reps=8, spin=False)
+    ms, host_us = device_ms(lambda D: kd.dchain_cuda(D, sizes), bufs, reps=200)
+    plain_ms, _ = device_ms(lambda D: kd.dchain_plain(D, sizes), bufs, reps=8, spin=False)
     B = bufs[0].shape[0]
     bound_ms, by = _bound((n * n + out_elems) * 4 * B, _dchain_flops(n, sizes) * B)
     print(f"K3 timing ({B}, {n}, {n}) sizes {sizes} f32, {ROTATING} rotating inputs: "
           f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, no single PyTorch call computes "
           f"the chain, bound {bound_ms:.4f} ms ({by}: "
           f"{(n * n + out_elems) * 4 * B / 1e6:.1f} MB, "
-          f"{_dchain_flops(n, sizes) * B / 1e9:.3f} GFLOP; {bound_ms / ms:.1%} of it reached)")
+          f"{_dchain_flops(n, sizes) * B / 1e9:.3f} GFLOP; {bound_ms / ms:.1%} of it reached); "
+          f"host {host_us:.1f} us per dchain_cuda call")
     return dict(max_abs_err=err_rec, ms=ms, plain_ms=plain_ms, library_ms=None,
                 bound_ms=bound_ms, bound_by=by)
 
@@ -435,6 +489,11 @@ def phase_main(card):
     for name, route, needs in (("path 1", mp.PATH1, ("gj_inverse",)),
                                ("path 2", mp.PATH2, ("gj_inverse", "gj_blocks", "dchain"))):
         launches[name] = drive_path(mp, p, name, route, oracle, mp.B_MAIN, needs)
+        if "dchain" in needs:
+            # three group inverses (cathode, anode, c_e) per factorisation
+            check(launches[name]["gj_blocks"] == 3 * launches[name]["dchain"],
+                  f"{name}: {launches[name]['gj_blocks']} K2 launches for "
+                  f"{launches[name]['dchain']} factorisations, not 3 each")
         # warm runs of one batch in this process: the end-to-end metric is
         # their median, and their spread is the noise within one process
         res2, walls, med, spread = mp.warm_walls(p, seed=1, route=route)

@@ -3,15 +3,18 @@ and its plain version.
 
 Counterpart of the JAX package's ``ops/pallas_gj.py:gj_inverse_hot_blocks``
 (the same TPU kernel ``_gj_kernel`` over a (B, m, n, n) stack flattened to
-B·m matrices). On the card it is ``csrc/gj_blocks.cu``: one warp per matrix,
-eight matrices per thread block, n ≤ 32 (the source says what bounds it).
-The nested Schur factorization sends its group inverses here (particle
-blocks n = 10, the c_e block n = 30) when the route asks for blocks.
+B·m matrices). On the card it is ``csrc/gj_blocks.cu``: lane i of a group
+holds row i of a matrix in registers, several matrices a warp, n ≤ 32 (the
+source says what bounds it). The nested Schur factorization sends its
+group inverses here (particle blocks n = 10, the c_e block n = 30) when the
+route asks for blocks.
 
 The plain version is the scalar pivot-free Gauss-Jordan
 (``gj_kernel.gj_inverse``), which is what the JAX package's
 ``structured._gj_inverse_routed`` runs off the TPU. ``gj_blocks_hot`` takes
 it for a CPU tensor; a CUDA tensor launches the kernel or raises.
+``gj_blocks_mirror`` is the kernel's own order of operations, which the
+tests and ``chip_smoke.py`` hold the kernel against.
 """
 
 from __future__ import annotations
@@ -36,6 +39,43 @@ def build():
 def gj_blocks_plain(A):
     """Inverses of a (..., n, n) stack of equilibrated matrices."""
     return gj_inverse(A)
+
+
+def kernel_width(n: int) -> int:
+    """Rows and columns the kernel holds for an n×n matrix
+    (csrc/gj_blocks.cu launch): n itself at the main path's 10 and 30, else
+    8, 16 or 32, the matrix padded with an identity tail."""
+    return n if n in (10, 30) else 8 if n <= 8 else 16 if n <= 16 else 32
+
+
+def gj_blocks_mirror(A, width=None):
+    """K2's order of operations in plain PyTorch, (..., n, n): the matrix
+    padded with an identity tail to `width` (default ``kernel_width(n)``;
+    exact: the inverse restricts), inverted in place one pivot at a time
+    with each pivot row's scaling deferred to the end. For pivot k, with
+    p = 1/a_kk and the raw row a_k*: every other row i takes m_i = a_ik·p,
+    a_ij ← a_ij − m_i·a_kj (j ≠ k) and a_ik ← −m_i; row k keeps its raw
+    values with a_kk ← 1. Each row is the exact inverse's row divided by its
+    own p, so the end multiplies row i by p_i. The kernel fuses each update
+    into one fma; this version rounds the product and the difference apart."""
+    n = A.shape[-1]
+    w = kernel_width(n) if width is None else width
+    M = torch.zeros(A.shape[:-2] + (w, w), dtype=A.dtype, device=A.device)
+    M[..., :n, :n] = A
+    pad = torch.arange(n, w, device=A.device)
+    M[..., pad, pad] = 1.0
+    p_all = torch.empty(A.shape[:-2] + (w,), dtype=A.dtype, device=A.device)
+    for k in range(w):
+        row = M[..., k, :].clone()
+        p = 1.0 / row[..., k]
+        p_all[..., k] = p
+        m = M[..., :, k] * p[..., None]
+        m[..., k] = 0.0
+        row[..., k] = 1.0
+        M[..., :, k] = 0.0
+        M[..., k, k] = 1.0
+        M = M - m[..., :, None] * row[..., None, :]
+    return (M * p_all[..., :, None])[..., :n, :n]
 
 
 def gj_blocks_cuda(A):

@@ -52,11 +52,15 @@ def test_kernel_matches_plain_on_card(dtype, n, tol):
                                        dtype=dtype, device="cuda"))
 
 
+@pytest.mark.parametrize("n", [1, 7, 8, 10, 16, 17, 30, 32])
 @pytest.mark.parametrize("dtype, tol", [(torch.float32, 2e-4),
                                         (torch.float64, 1e-10)])
-def test_gj_blocks_matches_plain_on_card(dtype, tol):
+def test_gj_blocks_matches_plain_on_card(dtype, tol, n):
+    """K2 against its mirror (the same order of operations) and the plain
+    version, at ragged stacks and a main-path-sized one, at each lane group
+    of the kernel (n = 10 and 30 exact, the others padded to 8, 16, 32)."""
     _need_card()
-    for M, n in ((10240, 10), (1024, 30), (7, 17), (3, 32)):
+    for M in (5, 10240 if n == 10 else 1024):
         rng = np.random.default_rng(M + n)
         A = rng.standard_normal((M, n, n)) + 15.0 * np.eye(n)
         A = torch.as_tensor(A, dtype=dtype, device="cuda")
@@ -64,6 +68,7 @@ def test_gj_blocks_matches_plain_on_card(dtype, tol):
         before = gk.LAUNCHES["gj_blocks"]
         got = kb.gj_blocks_hot(A)
         assert gk.LAUNCHES["gj_blocks"] == before + 1
+        assert float((got - kb.gj_blocks_mirror(A)).abs().max()) <= tol
         assert float((got - kb.gj_blocks_plain(A)).abs().max()) <= tol
     with pytest.raises(ValueError):
         kb.gj_blocks_cuda(torch.zeros(2, 33, 33, device="cuda"))

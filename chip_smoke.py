@@ -58,10 +58,27 @@ Phases, each of which must pass (any failure exits non-zero and prints no
    runs of one batch per path: their median wall gives discharges/s, their
    spread the timing noise within one process. The colored-sweep route
    (PETLION_JACA=0) is driven once at 64 cells under the same checks.
+5. simulate (path 3, `main_path.run_single`): the golden single-cell flow
+   on the card in float64 on the default route (K1 for the 71x71 core):
+   `simulate(p, I=-1, SOC=1)` must exit "Below min. SOC" within 5 s of
+   3600 s and 8e-3 V of the golden 2.9357 V and of the oracle; then
+   `simulate_cont(sol, p, 600.0, I="rest")` must reach tf with two runs;
+   `sol(t)` must go through the native C++ spline; the solution is saved,
+   loaded and resumed; the float32 discharge (abstol 1e-3) must stay within
+   5 mV of the float64 trace, each read through its Solution's
+   interpolation. K1 must be launched in the phase; three warm float64
+   discharges give the single-cell wall.
+6. tstops (path 4, `main_path.run_tstops`): path 1's 1024 cells in float32
+   with max_save 128, three stop times per cell from a numpy seed in
+   [200, 3400] s and a shared discontinuity at 1800 s: every cell must exit
+   with flag 3 and record a time within 1e-2 s of each of its stops and of
+   1800 − reltol/2, cell 0 within 5 s and 8e-3 V of the oracle; steps and
+   attempts per cell are printed beside path 1's; three warm runs.
 
 The line before the last is the kernels' JSON record (one entry per kernel;
-`launches` is the count of the path that runs it: path 1 for K1, path 2 for
-K2 and K3); the last line is {"ok": true, "device": {...}}.
+`launches` is the count of the paths that run it: path 1, simulate and
+tstops for K1, path 2 for K2 and K3); the last line is
+{"ok": true, "device": {...}}.
 """
 
 import json
@@ -476,7 +493,7 @@ def drive_path(mp, p, name, route, oracle, n_cells, needs):
     check(bool(np.isfinite(res.y_final.cpu().numpy()).all()), f"{name}: non-finite final states")
     check(abs(t_end - float(oracle["t_end"])) <= 5.0, f"{name}: cell 0 exit time off the oracle")
     check(abs(V_end - float(oracle["V_end"])) <= 8e-3, f"{name}: cell 0 V_end off the oracle")
-    return launches
+    return launches, res
 
 
 def phase_main(card):
@@ -485,10 +502,11 @@ def phase_main(card):
 
     p = mp.model(device="cuda")
     oracle = np.load(ORACLE)
-    launches = {}
+    launches, results = {}, {}
     for name, route, needs in (("path 1", mp.PATH1, ("gj_inverse",)),
                                ("path 2", mp.PATH2, ("gj_inverse", "gj_blocks", "dchain"))):
-        launches[name] = drive_path(mp, p, name, route, oracle, mp.B_MAIN, needs)
+        launches[name], results[name] = drive_path(mp, p, name, route, oracle,
+                                                   mp.B_MAIN, needs)
         if "dchain" in needs:
             # three group inverses (cathode, anode, c_e) per factorisation
             check(launches[name]["gj_blocks"] == 3 * launches[name]["dchain"],
@@ -506,10 +524,165 @@ def phase_main(card):
               f"mean {res2.n_steps.float().mean().item():.2f}, attempts/cell mean "
               f"{att2.mean():.2f} max {att2.max()} [{card}]")
     drive_path(mp, p, "colored route", mp.COLORED, oracle, 64, ("gj_inverse",))
+    return launches, results["path 1"]
+
+
+def _walls_line(walls):
+    import statistics
+    med = statistics.median(walls)
+    return med, (max(walls) - min(walls)) / med, ", ".join(f"{w:.3f}" for w in walls)
+
+
+def phase_simulate(card, oracle):
+    """Path 3: the golden single-cell flow through `simulate` on the card
+    in float64 (default route, K1 for the 71x71 core): discharge, rest,
+    interpolation through the native spline, checkpoint and resume, and the
+    float32 discharge. Returns the K1 launches of the phase."""
+    import tempfile
+    import numpy as np
+    import torch
+    import petlion_tpu_torch as ptt
+    from petlion_tpu_torch import main_path as mp
+    from petlion_tpu_torch.ops import gj_kernel as gk
+    from petlion_tpu_torch.runtime import native
+
+    check(native.available(), "the native runtime did not build")
+    spline_calls = [0]
+    spline = native.spline_interp
+
+    def counted(*args, **kwargs):
+        spline_calls[0] += 1
+        return spline(*args, **kwargs)
+
+    p = ptt.petlion(ptt.LCO, device="cuda", dtype=torch.float64)
+    gk.reset_launch_counts()
+    sol, wall = mp.run_single(p)
+    t_end, V_end = float(sol.t[-1]), float(sol.V[-1])
+    r = sol.results[-1]
+    print(f"simulate (first run, includes plan build): {wall:.3f} s, exit "
+          f"{sol.final_exit_reason()!r}, t_end {t_end:.4f} s (oracle "
+          f"{float(oracle['t_end']):.4f}), V_end {V_end:.5f} V (golden 2.9357, oracle "
+          f"{float(oracle['V_end']):.5f}); steps {r.n_steps}, attempts "
+          f"{r.n_steps + r.n_rejected}, {len(sol.t)} saved points")
+    check(sol.final_exit_reason() == "Below min. SOC", "simulate: wrong exit")
+    check(abs(t_end - 3600.0) <= 5.0, f"simulate: exit at {t_end} s")
+    check(abs(V_end - 2.9357) <= 8e-3, f"simulate: V_end {V_end} off the golden")
+    check(abs(t_end - float(oracle["t_end"])) <= 5.0, "simulate: exit time off the oracle")
+    check(abs(V_end - float(oracle["V_end"])) <= 8e-3, "simulate: V_end off the oracle")
+    check(bool(np.isfinite(sol.Y_final).all()), "simulate: non-finite final state")
+
+    sol = ptt.simulate_cont(sol, p, 600.0, I="rest")
+    print(f"simulate_cont(I='rest', 600 s): exits {sol.exit_reasons()}, t_end "
+          f"{float(sol.t[-1]):.4f} s, V_end {float(sol.V[-1]):.5f} V")
+    check(sol.final_exit_reason() == "Final time reached" and len(sol) == 2,
+          "simulate_cont: wrong exit or run count")
+
+    grid = np.linspace(0.0, float(sol.t[-1]), 200)
+    native.spline_interp = counted
+    try:
+        dense = sol(grid)
+    finally:
+        native.spline_interp = spline
+    print(f"sol(t) on {len(grid)} points: {spline_calls[0]} native spline calls, "
+          f"V in [{dense.V.min():.5f}, {dense.V.max():.5f}] V")
+    check(spline_calls[0] > 0, "sol(t) did not go through the native spline")
+    check(dense.V.shape == grid.shape and bool(np.isfinite(dense.V).all()),
+          "sol(t): bad interpolated V")
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "checkpoint.npz")
+        sol.save(path)
+        loaded = ptt.Solution.load(path)
+    check(np.array_equal(loaded.V, sol.V) and loaded.exit_reasons() == sol.exit_reasons(),
+          "checkpoint: the loaded solution differs")
+    loaded = ptt.simulate_cont(loaded, p, 300.0, I="rest")
+    print(f"checkpoint saved, loaded and resumed: exits {loaded.exit_reasons()}, "
+          f"t_end {float(loaded.t[-1]):.4f} s")
+    check(loaded.final_exit_reason() == "Final time reached" and len(loaded) == 3
+          and abs(float(loaded.t[-1]) - float(sol.t[-1]) - 300.0) < 1e-6,
+          "resume from the checkpoint failed")
+
+    s32, wall32 = mp.run_single(p, dtype=torch.float32, abstol=1e-3)
+    tq = np.linspace(50.0, 3500.0, 30)
+    s64 = sol[0]
+    # each trace read through its own Solution interpolation; straight lines
+    # between the saved points (printed beside) add the chords' own error
+    dv = float(np.max(np.abs(s32(tq).V - s64(tq).V)))
+    dv_lin = float(np.max(np.abs(np.interp(tq, s32.t, s32.V) - np.interp(tq, s64.t, s64.V))))
+    print(f"simulate float32 (abstol 1e-3): {wall32:.3f} s, exit "
+          f"{s32.final_exit_reason()!r} at {float(s32.t[-1]):.4f} s, max |V32 - V64| "
+          f"{dv * 1e3:.3f} mV on 30 points ({dv_lin * 1e3:.3f} mV between straight "
+          f"lines through the saved points)")
+    check(s32.final_exit_reason() == "Below min. SOC", "float32 simulate: wrong exit")
+    check(dv < 5e-3, f"float32 simulate: {dv} V off the float64 trace")
+    launches = gk.LAUNCHES["gj_inverse"]
+    print(f"simulate phase: {launches} K1 launches")
+    check(launches > 0, "the simulate phase never launched K1")
+
+    walls = []
+    for _ in range(mp.WARM_RUNS):
+        s, w = mp.run_single(p)
+        walls.append(w)
+    med, spread, ws = _walls_line(walls)
+    r = s.results[-1]
+    print(f"path 3 (warm, {len(walls)} single-cell float64 discharges): walls {ws} s, "
+          f"median {med:.3f} s, spread {spread:.1%}; steps {r.n_steps}, attempts "
+          f"{r.n_steps + r.n_rejected} [{card}]")
+    return launches
+
+
+def phase_tstops(card, oracle, path1):
+    """Path 4: path 1's batch with three stop times per cell and a shared
+    discontinuity. Returns the K1 launches of its first run."""
+    import numpy as np
+    from petlion_tpu_torch import main_path as mp
+    from petlion_tpu_torch.ops import gj_kernel as gk
+
+    p = mp.model(device="cuda")
+    gk.reset_launch_counts()
+    res, wall = mp.run_tstops(p, seed=0)
+    launches = gk.LAUNCHES["gj_inverse"]
+    flags = res.flag.cpu().numpy()
+    n_saved = res.n_saved.cpu().numpy()
+    t = res.bufs["t"].cpu().numpy()
+    stops = np.concatenate([mp.tstops(0), np.full((mp.B_MAIN, 1),
+                            mp.TDISCON[0] - p.opts.reltol / 2)], axis=1)
+    mask = np.arange(t.shape[1])[None, :] < n_saved[:, None]
+    dist = np.where(mask[:, None, :], np.abs(t[:, None, :] - stops[:, :, None]), np.inf)
+    worst = float(dist.min(axis=2).max())
+    steps = res.n_steps.cpu().numpy().astype(float)
+    att = steps + res.n_rejected.cpu().numpy()
+    s1 = path1.n_steps.cpu().numpy().astype(float)
+    a1 = s1 + path1.n_rejected.cpu().numpy()
+    t_end = float(res.t_final[0])
+    V_end = float(p.layout.V(res.y_final[0]))
+    print(f"tstops (first run): {wall:.3f} s for {mp.B_MAIN} cells, {launches} K1 "
+          f"launches; flags {dict(zip(*np.unique(flags, return_counts=True)))}; "
+          f"worst distance from a stop to its nearest recorded t {worst:.3e} s")
+    print(f"  steps/cell mean {steps.mean():.2f} (path 1 {s1.mean():.2f}, difference "
+          f"{steps.mean() - s1.mean():+.2f} for 4 stops), attempts/cell mean "
+          f"{att.mean():.2f} (path 1 {a1.mean():.2f}, {att.mean() - a1.mean():+.2f}); "
+          f"cell 0: t_end {t_end:.4f} s, V_end {V_end:.5f} V (oracle "
+          f"{float(oracle['V_end']):.5f})")
+    check(launches > 0, "the tstops phase never launched K1")
+    check(bool((flags == 3).all()), f"tstops: flags {sorted(set(flags.tolist()))}")
+    check(not bool(res.truncated.any()), "tstops: a cell's record overflowed max_save")
+    check(worst <= 1e-2, f"tstops: a stop missed by {worst} s")
+    check(abs(t_end - float(oracle["t_end"])) <= 5.0, "tstops: cell 0 exit time off the oracle")
+    check(abs(V_end - float(oracle["V_end"])) <= 8e-3, "tstops: cell 0 V_end off the oracle")
+    walls = []
+    for _ in range(mp.WARM_RUNS):
+        res2, w = mp.run_tstops(p, seed=0)
+        walls.append(w)
+    check(bool((res2.flag.cpu().numpy() == 3).all()), "tstops warm run: bad flags")
+    med, spread, ws = _walls_line(walls)
+    print(f"path 4 (warm, {len(walls)} runs of one batch): walls {ws} s, median "
+          f"{med:.3f} s = {mp.B_MAIN / med:.1f} discharges/s, spread {spread:.1%} [{card}]")
     return launches
 
 
 def main():
+    import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
@@ -523,16 +696,22 @@ def main():
         k1 = phase_k1(D)
         k2 = phase_k2(groups)
         k3 = phase_k3(Dp, sizes)
-        launches = phase_main(card)
+        launches, path1 = phase_main(card)
+        oracle = np.load(ORACLE)
+        k1_simulate = phase_simulate(card, oracle)
+        k1_tstops = phase_tstops(card, oracle, path1)
     except Exception:   # report any phase failure and exit non-zero
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
+    k1_launches = launches["path 1"]["gj_inverse"] + k1_simulate + k1_tstops
+    print(f"K1 launches: path 1 {launches['path 1']['gj_inverse']}, simulate "
+          f"{k1_simulate}, tstops {k1_tstops}, in all {k1_launches}")
     records = [
         {"name": "gj_inverse", "route": "cuda",
          "source": "petlion_tpu_torch/csrc/gj_inverse.cu",
          "replaces": "petlion_tpu/ops/pallas_gj.py:57",
-         "launches": launches["path 1"]["gj_inverse"], **k1},
+         "launches": k1_launches, **k1},
         {"name": "gj_blocks", "route": "cuda",
          "source": "petlion_tpu_torch/csrc/gj_blocks.cu",
          "replaces": "petlion_tpu/ops/pallas_gj.py:57",

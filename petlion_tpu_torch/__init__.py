@@ -6,6 +6,10 @@ the JAX package's three TPU kernels as CUDA kernels (`csrc/`: the
 Gauss-Jordan inverse, the stacked small inverses and the fused nested Schur
 chain; bound in `ops/gj_kernel.py`, `ops/gj_blocks.py`, `ops/dchain.py`).
 Entry points run on CUDA unless the caller passes ``device="cpu"``.
+
+    p   = petlion(LCO)                          # on CUDA, float64
+    sol = simulate(p, I=-1, SOC=1)              # one cell → Solution
+    res = batch_simulate(p, 3.9e3, I=-1, SOC=1, theta_batch={...})
 """
 
 from .chemistry import LCO
@@ -15,10 +19,41 @@ from .convert import model_from_numpy
 from .layout import StateLayout
 from .parallel.batch import batch_simulate
 from .physics.residuals import ModelConfig, calc_I1C, residual_core
-from .sim import Model, petlion
+from .sim import (Model, calc_OCV, calc_R_internal, petlion, simulate,
+                  simulate_cont)
+from .solution import RunResult, Solution, reset_t
+
+
+def final_exit_reason(sol: Solution) -> str:
+    return sol.final_exit_reason()
+
+
+def exit_reasons(sol: Solution):
+    return sol.exit_reasons()
+
 
 __all__ = [
     "LCO", "Bounds", "Discretizations", "EXIT_REASONS", "Numerics",
     "SimOptions", "model_from_numpy", "StateLayout", "batch_simulate",
     "ModelConfig", "calc_I1C", "residual_core", "Model", "petlion",
+    "simulate", "simulate_cont", "Solution", "RunResult", "reset_t",
+    "final_exit_reason", "exit_reasons", "calc_OCV", "calc_R_internal",
+]
+
+# the JAX package's reference-name aliases, for what is ported
+boundary_stop_conditions = Bounds
+options_simulation = SimOptions
+discretizations_per_section = Discretizations
+options_numerical = Numerics
+solution = Solution
+Params = petlion
+run_model = simulate
+run_model_cont = simulate_cont
+options_model = SimOptions
+model_output = Solution
+
+__all__ += [
+    "boundary_stop_conditions", "options_simulation",
+    "discretizations_per_section", "options_numerical", "solution",
+    "Params", "run_model", "run_model_cont", "options_model", "model_output",
 ]

@@ -138,6 +138,11 @@ class SimOptions:
     dt0: Optional[float] = None
     dtmax: Optional[float] = None
 
+    def __post_init__(self):
+        # outputs may be given as one name or a list; stored as a tuple
+        o = self.outputs
+        object.__setattr__(self, "outputs", (o,) if isinstance(o, str) else tuple(o))
+
     @property
     def abstol_init_(self) -> float:
         return self.abstol if self.abstol_init is None else self.abstol_init

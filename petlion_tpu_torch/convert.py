@@ -1,8 +1,8 @@
 """Carry a model's parameters across from the JAX package.
 
 `model_from_numpy` takes θ and bounds as plain floats and numpy values and
-the mesh and numerics as any objects with the same field names (or dicts),
-and returns this package's `Model`. Physics closures are matched by function
+the options, mesh and numerics as any objects with the same field names (or
+dicts), and returns this package's `Model`. Physics closures are matched by function
 name against this package's physics modules. Nothing of the JAX package is
 imported.
 """
@@ -35,10 +35,11 @@ def _port_function(fn):
     raise NotImplementedError(f"physics function {name!r} is not ported")
 
 
-def model_from_numpy(theta: dict, bounds, N, numerics, *, device,
+def model_from_numpy(theta: dict, bounds, N, numerics, *, opts=None, device,
                      dtype) -> Model:
-    """This package's Model from θ (str → float or 0-d numpy), bounds, mesh
-    and numerics given by field name."""
+    """This package's Model from θ (str → float or 0-d numpy), bounds,
+    options (default ``SimOptions()``), mesh and numerics given by field
+    name."""
     th = {k: float(np.asarray(v)) for k, v in theta.items()}
     b = Bounds(**{k: float(v) for k, v in _fields(bounds, Bounds).items()})
     mesh = Discretizations(**{k: int(v) for k, v in
@@ -48,5 +49,5 @@ def model_from_numpy(theta: dict, bounds, N, numerics, *, device,
         if f.name in nf and callable(f.default):
             nf[f.name] = _port_function(nf[f.name])
     num = Numerics(**nf)
-    return make_model(th, b, SimOptions(), mesh, num, device=device,
-                      dtype=dtype)
+    so = SimOptions(**_fields(opts, SimOptions)) if opts is not None else SimOptions()
+    return make_model(th, b, so, mesh, num, device=device, dtype=dtype)

@@ -185,3 +185,12 @@ class StateLayout:
             return -y[..., self.sl("Phi_e").stop - 1]
         return (y[..., self.sl("Phi_s", "n").start]
                 - y[..., self.sl("Phi_e", "n").start])
+
+    def soc_from_state(self, y, th):
+        """SOC estimate from the mean anode stoichiometry, (B,) from
+        (B, N_tot) states and (B, 1) θ."""
+        if self.half_cell:
+            raise NotImplementedError("anode='Li_metal' (half-cell)")
+        frac = self.get(y, "c_s_avg", "n").mean(dim=-1) / th["c_max_n"][..., 0]
+        return ((frac - th["theta_min_n"][..., 0])
+                / (th["theta_max_n"][..., 0] - th["theta_min_n"][..., 0]))

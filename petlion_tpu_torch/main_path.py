@@ -16,19 +16,29 @@ published values. It runs on two routes (``ops/plan.py:Route``):
   in consistent initialization.
 
 ``COLORED`` is the colored-sweep route (``PETLION_JACA=0``), kept for
-comparison. ``newton_matrices`` builds the Newton matrices of the main path
-that the kernels see, for the tests and ``chip_smoke.py`` to hold the kernels
-on real inputs.
+comparison. Two more paths go through the single-cell API and the stop
+times, both on the default route:
+
+* path 3, ``run_single``: ``simulate(p, I=-1, SOC=1)`` of one LCO cell with
+  the model's own options (the golden flow), float64 by default;
+* path 4, ``run_tstops``: path 1's batch with ``TSTOPS_OPTS`` (path 1's
+  options with ``max_save`` 128, recording ``t`` and ``V``), three stop
+  times per cell drawn from a numpy seed in [200, 3400] s (``tstops``) and
+  the shared discontinuity ``TDISCON``.
+
+``newton_matrices`` builds the Newton matrices of the main path that the
+kernels see, for the tests and ``chip_smoke.py`` to hold the kernels on real
+inputs.
 ``chip_smoke.py`` checks these programs; run as a script,
 
-    python -m petlion_tpu_torch.main_path [path1|path2 ...]
+    python -m petlion_tpu_torch.main_path [path1|path2|path3|path4 ...]
 
-profiles each named path (both by default) on the card: one cold run, one
-warm run under ``torch.profiler`` (CPU and CUDA activities) and three
-unprofiled warm runs of the same batch. It prints the warm walls, the device
-time summed over all kernels, the kernels per outer trip, the device-busy
-share of the wall, each hand-written kernel's launches and share, and the
-kernels that take the most device time.
+profiles each named path (path 1 and path 2 by default) on the card: one
+cold run, one warm run under ``torch.profiler`` (CPU and CUDA activities)
+and three unprofiled warm runs of the same batch. It prints the warm walls,
+the device time summed over all kernels, the kernels per outer trip, the
+device-busy share of the wall, each hand-written kernel's launches and
+share, and the kernels that take the most device time.
 """
 
 from __future__ import annotations
@@ -45,13 +55,15 @@ from .chemistry import LCO
 from .ops import gj_kernel
 from .ops.plan import FULL_KERNEL_ROUTE, Route
 from .parallel.batch import batch_simulate
-from .sim import Model, petlion
+from .sim import Model, petlion, simulate
 
 B_MAIN = 1024
 TF = 3.9e3
 SWEPT_THETA = {"D_sp": 1e-14, "D_sn": 3.9e-14, "k_p": 2.334e-11, "k_n": 5.031e-11}
 BENCH_OPTS = dict(abstol=5e-4, reltol=1e-3, max_save=2, maxiters=500)
 WARM_RUNS = 3
+TSTOPS_OPTS = dict(BENCH_OPTS, max_save=128, outputs=("t", "V"))
+TDISCON = [1800.0]
 PATH1 = Route()
 PATH2 = FULL_KERNEL_ROUTE
 COLORED = Route(analytic=False)
@@ -86,6 +98,36 @@ def run(p: Model, seed: int, route: Route = PATH1, n_cells: int = B_MAIN):
     t0 = time.perf_counter()
     res = batch_simulate(p, TF, I=-1.0, SOC=1.0, theta_batch=tb,
                          outputs=("t", "V"), route=route)
+    torch.cuda.synchronize()
+    return res, time.perf_counter() - t0
+
+
+def run_single(p: Model, **kwargs):
+    """Path 3: one cell's 1C discharge from SOC 1 through ``simulate`` on
+    the model's device: (Solution, wall seconds), the wall ending in a
+    device synchronisation. `kwargs` go to ``simulate``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sol = simulate(p, I=-1, SOC=1, **kwargs)
+    torch.cuda.synchronize()
+    return sol, time.perf_counter() - t0
+
+
+def tstops(seed: int, n_cells: int = B_MAIN):
+    """Path 4's stop times: (n_cells, 3), sorted per cell, from `seed`."""
+    rng = np.random.default_rng(seed)
+    return np.sort(rng.uniform(200.0, 3400.0, (n_cells, 3)), axis=1)
+
+
+def run_tstops(p: Model, seed: int, n_cells: int = B_MAIN):
+    """Path 4: path 1's batch with per-cell stop times and the shared
+    discontinuity: (RunResultDev, wall seconds)."""
+    tb = {k: v[:n_cells] for k, v in theta_batch(seed).items()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = batch_simulate(p, TF, I=-1.0, SOC=1.0, theta_batch=tb, route=PATH1,
+                         tstops=tstops(seed, n_cells), tdiscon=TDISCON,
+                         **TSTOPS_OPTS)
     torch.cuda.synchronize()
     return res, time.perf_counter() - t0
 
@@ -150,16 +192,29 @@ def _device_us(evt):
     return 0.0
 
 
+def _path_run(name: str, p: Model, seed: int):
+    """One run of a named path: (steps, rejected attempts) per cell as
+    numpy arrays, and the wall."""
+    if name == "path3":
+        sol, wall = run_single(p)
+        r = sol.results[-1]
+        return np.array([r.n_steps]), np.array([r.n_rejected]), wall
+    res, wall = (run_tstops(p, seed) if name == "path4"
+                 else run(p, seed, route=PATHS[name]))
+    return res.n_steps.cpu().numpy(), res.n_rejected.cpu().numpy(), wall
+
+
 def profile(p: Model, name: str, card: str):
     """Profile one path (see the module docstring) and print its numbers."""
-    route = PATHS[name]
-    run(p, seed=0, route=route)
+    _path_run(name, p, seed=0)
     gj_kernel.reset_launch_counts()
     from torch.profiler import ProfilerActivity, profile as tprofile
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        res, wall = run(p, seed=1, route=route)
+        steps, rejected, wall = _path_run(name, p, seed=1)
     launches = dict(gj_kernel.LAUNCHES)
-    _, walls, med, spread = warm_walls(p, seed=1, route=route)
+    walls = [_path_run(name, p, seed=1)[2] for _ in range(WARM_RUNS)]
+    med = statistics.median(walls)
+    spread = (max(walls) - min(walls)) / med
 
     ka = prof.key_averages()
     # device-side entries only (a CPU op's entry repeats its kernels' time)
@@ -167,12 +222,13 @@ def profile(p: Model, name: str, card: str):
                and _device_us(e) > 0]
     total_s = sum(_device_us(e) for e in kernels) / 1e6
     n_kernels = sum(e.count for e in kernels)
-    att = (res.n_steps + res.n_rejected).cpu().numpy()
+    att = steps + rejected
     trips = max(int(att.max()), 1)
-    print(f"== {name}: {route} [{card}]")
-    print(f"cells {B_MAIN}: warm walls {', '.join(f'{w:.3f}' for w in walls)} s "
+    print(f"== {name}: {PATHS.get(name, Route.from_env())}, {len(steps)} cells, "
+          f"{p.dtype} [{card}]")
+    print(f"warm walls {', '.join(f'{w:.3f}' for w in walls)} s "
           f"unprofiled (median {med:.3f} s, spread {spread:.1%}), {wall:.3f} s "
-          f"profiled; steps/cell mean {res.n_steps.float().mean().item():.2f}, "
+          f"profiled; steps/cell mean {steps.mean():.2f}, "
           f"attempts/cell mean {att.mean():.2f} max {att.max()}")
     print(f"device kernel time {total_s:.3f} s over {n_kernels} kernel launches "
           f"({n_kernels / trips:.0f} per outer trip); device busy "
@@ -194,9 +250,9 @@ def main(names=("path1", "path2")):
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60).stdout.strip()
-    p = model()
+    p32, p64 = model(), petlion(LCO)
     for name in names:
-        profile(p, name, card)
+        profile(p64 if name == "path3" else p32, name, card)
 
 
 if __name__ == "__main__":

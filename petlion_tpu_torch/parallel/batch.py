@@ -58,6 +58,9 @@ def batch_simulate(p: Model,
     for k, v in (theta_batch or {}).items():
         th[k] = torch.as_tensor(np.asarray(v, dtype=np.float64), **kw).reshape(B, 1)
 
+    tstops_in = kwargs.pop("tstops", None)
+    tdiscon_in = kwargs.pop("tdiscon", None)
+
     bdict = events.bounds_dict(p.bounds)
     for k in events.BOUND_KEYS:
         if k in kwargs:
@@ -67,16 +70,9 @@ def batch_simulate(p: Model,
 
     opts = p.opts
     overrides = {k: kwargs.pop(k) for k in list(kwargs) if k in _OPT_KEYS}
-    if "outputs" in overrides:
-        o = overrides["outputs"]
-        overrides["outputs"] = (o,) if isinstance(o, str) else tuple(o)
     if overrides:
         opts = opts.replace(**overrides)
-    for k in ("tstops", "tdiscon"):
-        if k in kwargs:
-            raise NotImplementedError(k)
-
-    _, spec, value, _, _ = _build_control(p, None, kwargs)
+    _, spec, value, is_rest, _ = _build_control(p, None, kwargs)
     if kwargs:
         raise TypeError(f"unknown keyword arguments: {sorted(kwargs)}")
 
@@ -88,9 +84,25 @@ def batch_simulate(p: Model,
                                       dtype=np.float64), **kw)
     soc0 = soc0.expand(B).contiguous()
 
+    parts = []
+    if tstops_in is not None:
+        parts.append(_stop_times(tstops_in, kw))
+    if tdiscon_in is not None:
+        parts.append(_stop_times(tdiscon_in, kw) - opts.reltol / 2)
+    parts = [a.expand(B, -1) if a.ndim == 1 else a for a in parts]
+    if any(a.ndim != 2 or a.shape[0] != B for a in parts):
+        raise ValueError(f"tstops/tdiscon: need (K,) or ({B}, K), got "
+                         f"{[tuple(a.shape) for a in parts]}")
+    tstops = torch.cat(parts, dim=-1) if parts else None
+
     with torch.no_grad():
         y_start = initial_guess(soc0, th, p.cfg)
         plan = get_plan(p.cfg, p.theta_floats(), route)
         return run_once(y_start=y_start, soc0=soc0, value=value, tf=tf, th=th,
                         bounds=bounds, cfg=p.cfg, spec=spec, opts=opts,
-                        jac_plan=plan)
+                        jac_plan=plan, is_rest=is_rest, tstops=tstops)
+
+
+def _stop_times(ts, kw):
+    """Stop times as a (K,) or (B, K) tensor in the run's dtype."""
+    return torch.atleast_1d(torch.as_tensor(np.asarray(ts, dtype=np.float64), **kw))

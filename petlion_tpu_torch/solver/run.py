@@ -109,14 +109,30 @@ def _record(bufs, idx, write, t, y, yp, soc, th, cfg: ModelConfig, vec_outs):
         buf[b, idx] = _select(write, val, buf[b, idx])
 
 
+def initial_current_guess(spec: control.ControlSpec, value, y0, cfg: ModelConfig,
+                          prev_I, has_prev):
+    """Y0 with its current seeded per control method, (B, N). `prev_I` and
+    `has_prev` (B,) carry the last current of a continued run; the methods
+    that read them (V, P, η_p, res) are not ported."""
+    if spec.method != "I" or spec.func is not None:
+        raise NotImplementedError(f"initial current for method {spec.method!r}")
+    y0 = y0.clone()
+    y0[:, cfg.layout.sl("I").start] = value
+    return y0
+
+
 def run_once(*, y_start, soc0, value, tf, th, bounds: dict,
              cfg: ModelConfig, spec: control.ControlSpec, opts: SimOptions,
-             jac_plan) -> RunResultDev:
+             jac_plan, is_rest: bool = False, prev_I=None, has_prev=None,
+             tstops=None) -> RunResultDev:
     """Execute one run for a batch of cells.
 
     y_start (B, N): starting states, whose algebraic part is re-initialized;
     soc0, value (B,); th: dict of (B, 1) θ tensors; bounds: dict of (B,)
-    tensors; tf: float."""
+    tensors; tf: float. `is_rest` turns the bound checks off (I = 0).
+    `prev_I`, `has_prev` (B,): the last current of a continued run.
+    `tstops` (B, K) or None: each cell's explicit stop times; every step
+    ends at or before the cell's next stop (pad a row with inf)."""
     if opts.jac_reuse:
         raise NotImplementedError("jac_reuse > 0")
     if opts.stop_function is not None:
@@ -134,8 +150,7 @@ def run_once(*, y_start, soc0, value, tf, th, bounds: dict,
         return control.full_residual(spec, d[_VALUE][:, 0], t, y, yp, d, cfg)
 
     # ---- consistent initialization -----------------------------------------
-    y0 = y_start.clone()
-    y0[:, L.sl("I").start] = value
+    y0 = initial_current_guess(spec, value, y_start, cfg, prev_I, has_prev)
     init = consistent_init(F, y0, nd, data, reltol_init=opts.reltol_init_,
                            maxiter=opts.init_maxiter, c_e0=1000.0,
                            jac_plan=jac_plan, th=th)
@@ -176,7 +191,8 @@ def run_once(*, y_start, soc0, value, tf, th, bounds: dict,
     _record(bufs, zeros_i, all_cells, t0, y0, yp0, soc0, th, cfg, vec_outs)
     prev0 = events.BoundsPrev.init(t0)
     flag0 = torch.full((B,), EXIT_SIMULATING, dtype=torch.int64, device=dev)
-    chk = dict(reltol=opts.reltol, tf=tf, check_bounds=opts.check_bounds)
+    chk = dict(reltol=opts.reltol, tf=tf, check_bounds=opts.check_bounds,
+               is_rest=is_rest)
     prev0, flag0 = events.check_stop(t0, y0, yp0, soc0, prev0, flag0, bounds,
                                      th, cfg, spec.method, **chk)
     flag0 = torch.where(init.converged, flag0,
@@ -187,13 +203,25 @@ def run_once(*, y_start, soc0, value, tf, th, bounds: dict,
                      soc_prev=soc0)
     tries = zeros_i
 
+    # explicit stops: each step's bound is the cell's next stop time
+    if tstops is not None:
+        tstops = torch.as_tensor(tstops, dtype=y0.dtype, device=dev).reshape(B, -1)
+        tf_cells = torch.full((B,), tf, dtype=y0.dtype, device=dev)
+
+    def t_bound_of(t):
+        if tstops is None:
+            return tf
+        nxt = torch.where(tstops > (t + 1e-9)[:, None], tstops,
+                          torch.full_like(tstops, float("inf")))
+        return torch.minimum(tf_cells, torch.amin(nxt, dim=1))
+
     while True:
         st0 = rs.bdf
         active = ((rs.flag == EXIT_SIMULATING) & (st0.t < tf)
                   & (st0.status == bdf.OK) & (st0.n_steps < opts.maxiters))
         if not bool(active.any()):
             break
-        st, acc, done, tries_new = stepper.step(st0, tf, tries)
+        st, acc, done, tries_new = stepper.step(st0, t_bound_of(st0.t), tries)
         tries = torch.where(active, torch.where(done, zeros_i, tries_new), tries)
         ended = active & done        # cells whose accepted-step loop ended
 

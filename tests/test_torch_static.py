@@ -82,8 +82,11 @@ def test_lco_theta_bounds_opts_match_jax():
 def test_model_from_numpy_round_trips(p_jax):
     m = ptt.model_from_numpy(
         {k: np.float64(v) for k, v in p_jax.theta.items()}, p_jax.bounds,
-        p_jax.N, p_jax.numerics, device="cpu", dtype=torch.float64)
+        p_jax.N, p_jax.numerics, opts=p_jax.opts, device="cpu",
+        dtype=torch.float64)
     assert m.theta_floats() == p_jax.theta
+    for f in dataclasses.fields(p_jax.opts):
+        assert getattr(m.opts, f.name) == getattr(p_jax.opts, f.name), f.name
     assert m.cfg.layout == ptt.petlion(ptt.LCO, device="cpu").cfg.layout
     assert m.numerics == ptt.LCO()[4]
     for f in dataclasses.fields(p_jax.bounds):
@@ -111,10 +114,21 @@ def test_main_path_is_the_bench_program():
 
 
 def test_port_sources_import_no_jax():
-    bad = re.compile(r"^\s*(import jax|from jax)|petlion_tpu(?!_torch)", re.M)
+    """No source of the port imports JAX or names the JAX package, and none
+    reaches into the repository's csrc/ (the JAX package's native runtime):
+    the port builds its own csrc/ sources into build/."""
+    bad = re.compile(r"^\s*(import jax|from jax)|petlion_tpu(?!_torch)"
+                     r"|parents\[2\]\s*/\s*[\"']csrc|\.\./csrc|petlion_native", re.M)
     offenders = [str(f.relative_to(PKG)) for f in PKG.rglob("*")
-                 if f.suffix in (".py", ".cu") and bad.search(f.read_text())]
+                 if f.suffix in (".py", ".cu", ".cuh", ".cpp")
+                 and bad.search(f.read_text())]
     assert offenders == []
+    from petlion_tpu_torch.ops import gj_kernel
+    from petlion_tpu_torch.runtime import native
+    for src in (gj_kernel.CSRC, native.SOURCE.parent):
+        assert src == PKG / "csrc"
+    for out in (gj_kernel.BUILD_DIR, native.BUILD_DIR):
+        assert out.parent == PKG.parent / "build"
 
 
 def test_import_leaves_jax_unloaded():

@@ -75,9 +75,26 @@ Phases, each of which must pass (any failure exits non-zero and prints no
    1800 − reltol/2, cell 0 within 5 s and 8e-3 V of the oracle; steps and
    attempts per cell are printed beside path 1's; three warm runs.
 
+7. gitt (path 5, `main_path.run_gitt`): 1024 LCO cells in float32 on the
+   default route, each discharged at 1C by a batch-first function input
+   until its own pulse end (θ `t_pulse_off`, a numpy seed, 250-650 s) and
+   resting to 900 s, with that time as the cell's tdiscon, so that each
+   cell re-initializes at its own jump: every cell must exit with flag 0,
+   record a time within 1e-2 s of its pulse end, carry |I + 1| < 1e-3
+   before it (up to 0.01 s) and |I| < 1e-3 after it (from 0.5 s), and end
+   within 1 s of 900 s; K1 must be launched, and the trips that ran a
+   re-initialization are printed; three warm runs give discharges/s.
+8. cccv (path 6, `main_path.run_cccv`, `run_power`, `run_eta`): one cell
+   in float64 through `simulate`, 2C from SOC 0 to V_max 4.1 V ("Above max.
+   voltage"), then V = "hold" until I_min 0.05C ("Below min. C-rate" with
+   |I - 0.05| < 5e-3, or "Above max. SOC") with the power continuous across
+   the boundary (rtol 1e-3); then P = -10 W/m² for 600 s (|P + 10| < 1e-6)
+   and eta_p = 0.05 V for 60 s (|eta_p - 0.05| < 1e-6) from SOC 0.5. K1 must
+   be launched; the warm wall of the CC→CV pair is printed.
+
 The line before the last is the kernels' JSON record (one entry per kernel;
-`launches` is the count of the paths that run it: path 1, simulate and
-tstops for K1, path 2 for K2 and K3); the last line is
+`launches` is the count of the paths that run it: path 1, simulate, tstops,
+gitt and cccv for K1, path 2 for K2 and K3); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -681,6 +698,128 @@ def phase_tstops(card, oracle, path1):
     return launches
 
 
+def check_gitt(res, t_off, tf):
+    """Path 5's checks on one run's result; returns the worst distance from
+    a pulse end to its nearest recorded time."""
+    import numpy as np
+    flags = res.flag.cpu().numpy()
+    n_saved = res.n_saved.cpu().numpy()
+    t = res.bufs["t"].cpu().numpy().astype(np.float64)
+    I = res.bufs["I"].cpu().numpy().astype(np.float64)
+    saved = np.arange(t.shape[1])[None, :] < n_saved[:, None]
+    check(bool((flags == 0).all()), f"gitt: flags {sorted(set(flags.tolist()))}")
+    check(not bool(res.truncated.any()), "gitt: a cell's record overflowed max_save")
+    check(bool(np.isfinite(res.y_final.cpu().numpy()).all()), "gitt: non-finite final states")
+    gap = np.where(saved, np.abs(t - t_off[:, None]), np.inf).min(axis=1)
+    worst = float(gap.max())
+    check(worst < 1e-2, f"gitt: a pulse end missed by {worst} s")
+    before = saved & (t < t_off[:, None] - 0.01)
+    after = saved & (t > t_off[:, None] + 0.5)
+    check(bool((np.abs(I + 1.0)[before] < 1e-3).all()), "gitt: |I + 1| >= 1e-3 before a pulse end")
+    check(bool(after.any(axis=1).all()), "gitt: a cell recorded nothing after its pulse end")
+    check(bool((np.abs(I)[after] < 1e-3).all()), "gitt: |I| >= 1e-3 after a pulse end")
+    t_last = t[np.arange(len(t)), n_saved - 1]
+    check(bool((np.abs(t_last - tf) < 1.0).all()), "gitt: a cell ended short of tf")
+    return worst
+
+
+def phase_gitt(card):
+    """Path 5: the batched GITT pulse. Returns the K1 launches of its first
+    run."""
+    import numpy as np
+    from petlion_tpu_torch import main_path as mp
+    from petlion_tpu_torch.ops import gj_kernel as gk
+    from petlion_tpu_torch.solver import run as runner
+
+    p = mp.model(device="cuda")
+    gk.reset_launch_counts()
+    runner.reset_trip_counts()
+    res, wall = mp.run_gitt(p, seed=0)
+    launches = gk.LAUNCHES["gj_inverse"]
+    trips = dict(runner.TRIPS)
+    t_off = mp.t_pulse_off(0)
+    worst = check_gitt(res, t_off, mp.GITT_TF)
+    steps = res.n_steps.cpu().numpy().astype(float)
+    att = steps + res.n_rejected.cpu().numpy()
+    print(f"gitt (first run): {wall:.3f} s for {mp.B_MAIN} cells, {launches} K1 launches, "
+          f"{trips['trips']} trips, {trips['reinit']} of them ran a re-initialization "
+          f"({trips['reinit_s']:.3f} s of host wall in them); worst distance from a pulse "
+          f"end to its nearest recorded t {worst:.3e} s; steps/cell mean {steps.mean():.2f}, "
+          f"attempts/cell mean {att.mean():.2f} max {att.max():.0f}")
+    check(launches > 0, "the gitt phase never launched K1")
+    check(trips["reinit"] > 0, "the gitt phase never re-initialized")
+    walls = []
+    for _ in range(mp.WARM_RUNS):
+        res2, w = mp.run_gitt(p, seed=0)
+        walls.append(w)
+    check_gitt(res2, t_off, mp.GITT_TF)
+    med, spread, ws = _walls_line(walls)
+    s2 = res2.n_steps.cpu().numpy().astype(float)
+    a2 = s2 + res2.n_rejected.cpu().numpy()
+    print(f"path 5 (warm, {len(walls)} runs of one batch): walls {ws} s, median {med:.3f} s "
+          f"= {mp.B_MAIN / med:.1f} discharges/s, spread {spread:.1%}; steps/cell mean "
+          f"{s2.mean():.2f}, attempts/cell mean {a2.mean():.2f} max {a2.max():.0f} [{card}]")
+    return launches
+
+
+def check_cccv(sol):
+    """Path 6's CC→CV checks on the chained Solution."""
+    import numpy as np
+    reasons = sol.exit_reasons()
+    check(len(sol) == 2 and reasons[0] == "Above max. voltage",
+          f"cccv: exits {reasons}")
+    if reasons[1] == "Below min. C-rate":
+        check(abs(float(sol.I[-1]) - 0.05) < 5e-3, f"cccv: taper ended at I {sol.I[-1]}")
+    else:
+        check(reasons[1] == "Above max. SOC", f"cccv: the taper ended with {reasons[1]!r}")
+    r0, r1 = sol.results
+    P0, P1 = float(sol.P[r0.run_index][-1]), float(sol.P[r1.run_index][0])
+    check(abs(P1 - P0) <= 1e-3 * abs(P0), f"cccv: power jumps {P0} -> {P1} at the boundary")
+    check(bool(np.isfinite(sol.Y_final).all()), "cccv: non-finite final state")
+    return P0, P1
+
+
+def phase_cccv(card):
+    """Path 6: CC→CV, constant power and plating overpotential on one cell
+    in float64. Returns the K1 launches of the phase."""
+    import torch
+    import petlion_tpu_torch as ptt
+    from petlion_tpu_torch import main_path as mp
+    from petlion_tpu_torch.ops import gj_kernel as gk
+
+    p = ptt.petlion(ptt.LCO, device="cuda", dtype=torch.float64)
+    gk.reset_launch_counts()
+    sol, wall = mp.run_cccv(p)
+    P0, P1 = check_cccv(sol)
+    r0, r1 = sol.results
+    print(f"cccv (first run, includes plan build): {wall:.3f} s, exits {sol.exit_reasons()} "
+          f"at {r0.tspan[1]:.2f} s and {r1.tspan[1]:.2f} s, final I {float(sol.I[-1]):.5f}C, "
+          f"V {float(sol.V[-1]):.5f} V, SOC {float(sol.SOC[-1]):.5f}; power at the boundary "
+          f"{P0:.6f} -> {P1:.6f} W/m2; steps {r0.n_steps} + {r1.n_steps}, attempts "
+          f"{r0.n_steps + r0.n_rejected} + {r1.n_steps + r1.n_rejected}")
+    sP, wP = mp.run_power(p)
+    check(sP.final_exit_reason() == "Final time reached" and abs(float(sP.P[-1]) + 10.0) < 1e-6,
+          f"P=-10: exit {sP.final_exit_reason()!r}, P_end {sP.P[-1]}")
+    sE, wE = mp.run_eta(p)
+    eta = float(p.layout.eta_plating(sE.Y_final))
+    check(sE.final_exit_reason() == "Final time reached" and abs(eta - 0.05) < 1e-6,
+          f"eta_p=0.05: exit {sE.final_exit_reason()!r}, eta_p {eta}")
+    launches = gk.LAUNCHES["gj_inverse"]
+    print(f"P = -10 W/m2, 600 s: {wP:.3f} s, P_end {float(sP.P[-1]):.9f}, steps "
+          f"{sP.results[0].n_steps}; eta_p = 0.05 V, 60 s: {wE:.3f} s, eta_p_end {eta:.9f}, "
+          f"steps {sE.results[0].n_steps}; cccv phase: {launches} K1 launches")
+    check(launches > 0, "the cccv phase never launched K1")
+    walls = []
+    for _ in range(mp.WARM_RUNS):
+        s2, w = mp.run_cccv(p)
+        walls.append(w)
+    check_cccv(s2)
+    med, spread, ws = _walls_line(walls)
+    print(f"path 6 (warm, {len(walls)} CC→CV pairs): walls {ws} s, median {med:.3f} s, "
+          f"spread {spread:.1%} [{card}]")
+    return launches
+
+
 def main():
     import numpy as np
     import torch
@@ -700,13 +839,17 @@ def main():
         oracle = np.load(ORACLE)
         k1_simulate = phase_simulate(card, oracle)
         k1_tstops = phase_tstops(card, oracle, path1)
+        k1_gitt = phase_gitt(card)
+        k1_cccv = phase_cccv(card)
     except Exception:   # report any phase failure and exit non-zero
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
-    k1_launches = launches["path 1"]["gj_inverse"] + k1_simulate + k1_tstops
+    k1_launches = (launches["path 1"]["gj_inverse"] + k1_simulate + k1_tstops + k1_gitt
+                   + k1_cccv)
     print(f"K1 launches: path 1 {launches['path 1']['gj_inverse']}, simulate "
-          f"{k1_simulate}, tstops {k1_tstops}, in all {k1_launches}")
+          f"{k1_simulate}, tstops {k1_tstops}, gitt {k1_gitt}, cccv {k1_cccv}, "
+          f"in all {k1_launches}")
     records = [
         {"name": "gj_inverse", "route": "cuda",
          "source": "petlion_tpu_torch/csrc/gj_inverse.cu",

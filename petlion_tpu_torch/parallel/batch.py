@@ -34,7 +34,11 @@ def batch_simulate(p: Model,
     """Run the same control segment over a batch of cells.
 
     theta_batch: dict of θ overrides with a leading batch dim (other θ keys
-    broadcast). SOC / value_batch may be scalars or (B,) arrays. `device`
+    broadcast); a key the model does not have rides along for user
+    functions, which read it as ``th[key]``, (B, 1). The control is any
+    input of ``simulate`` but "hold" (I=, V=, P=, eta_p=, res=, dc_*=,
+    constants or batch-first functions). SOC / value_batch (the setpoint of
+    a constant input, per cell) may be scalars or (B,) arrays. `device`
     and `dtype` default to the model's. `route` selects the Newton-matrix
     assembly and factorization (``ops.plan.Route``; default: the
     PETLION_* environment variables, as in the JAX package). Returns
@@ -72,7 +76,7 @@ def batch_simulate(p: Model,
     overrides = {k: kwargs.pop(k) for k in list(kwargs) if k in _OPT_KEYS}
     if overrides:
         opts = opts.replace(**overrides)
-    _, spec, value, is_rest, _ = _build_control(p, None, kwargs)
+    _, spec, value, is_rest, is_th = _build_control(p, None, kwargs)
     if kwargs:
         raise TypeError(f"unknown keyword arguments: {sorted(kwargs)}")
 
@@ -100,7 +104,8 @@ def batch_simulate(p: Model,
         plan = get_plan(p.cfg, p.theta_floats(), route)
         return run_once(y_start=y_start, soc0=soc0, value=value, tf=tf, th=th,
                         bounds=bounds, cfg=p.cfg, spec=spec, opts=opts,
-                        jac_plan=plan, is_rest=is_rest, tstops=tstops)
+                        jac_plan=plan, is_rest=is_rest,
+                        is_temperature_hold=is_th, tstops=tstops)
 
 
 def _stop_times(ts, kw):

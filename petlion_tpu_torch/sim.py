@@ -225,10 +225,10 @@ def _check_parameters_runtime(p: Model):
         raise ValueError("theta_min_n must be < theta_max_n")
 
 
-def _check_initial_soc(bounds: dict, soc: float, value: float):
+def _check_initial_soc(bounds: dict, soc: float, spec, value: float):
     """A new constant-current run must leave room in the (dis)charge
-    direction."""
-    if value == 0:
+    direction (only a constant current decides it)."""
+    if spec.method != "I" or spec.func is not None or value == 0:
         return
     soc_max = float(bounds.get("SOC_max", math.nan))
     soc_min = float(bounds.get("SOC_min", math.nan))
@@ -243,28 +243,78 @@ def _check_initial_soc(bounds: dict, soc: float, value: float):
 
 def _build_control(p: Model, sol: Optional[Solution], kwargs):
     """Identify the control method and build (name, spec, value, is_rest,
-    is_temperature_hold). Ported: a constant current, I="rest" (I = 0 with
-    the bound checks off) and I="hold" (the previous run's last current)."""
+    is_temperature_hold): a constant, a function (batch-first, see
+    ``solver/control.py``), "rest" (I and P; I = 0 turns the bound checks
+    off) or "hold" (the previous run's last value) for I/V/P/η_p; the
+    dc_s_p_*/dc_s_n_*/dc_e_* derivative holds; and `res` as `(value, f)` or
+    `f`. The dT/T holds need the thermal model, which the port does not
+    have yet."""
     given = [k for k in _METHOD_KEYS if k in kwargs]
     if len(given) != 1:
         raise ValueError(
             f"choose exactly one input from {_METHOD_KEYS}; got {given}")
     name = given[0]
     inp = kwargs.pop(name)
-    if name != "I":
-        raise NotImplementedError(f"control input {name}=")
-    if callable(inp):
-        raise NotImplementedError("function inputs (I=callable)")
-    spec = ctrl.ControlSpec("I")
-    if not isinstance(inp, str):
-        return name, spec, float(inp), False, False
-    if inp == "rest":
-        return name, spec, 0.0, True, False
-    if inp == "hold":
-        if sol is None or not sol:
-            raise ValueError("cannot use 'hold' without a previous simulation")
-        return name, spec, float(p.layout.I(sol.Y_final)), False, False
-    raise ValueError(f"unsupported input symbol {inp!r}")
+    L = p.cfg.layout
+    is_rest = False
+    value = 0.0
+
+    if name in ("I", "V", "P", "eta_p"):
+        if callable(inp):
+            spec = ctrl.ControlSpec(name, ctrl.normalize_func(inp))
+        elif isinstance(inp, str):
+            spec = ctrl.ControlSpec(name)
+            if inp == "rest":
+                if name not in ("I", "P"):
+                    raise ValueError(f"'rest' unsupported for {name}")
+                is_rest = name == "I"
+            elif inp == "hold":
+                if sol is None or not sol:
+                    raise ValueError("cannot use 'hold' without a previous simulation")
+                y = np.asarray(sol.Y_final)
+                value = float({"I": L.I(y), "V": L.V(y),
+                               "P": L.I(y) * p.I1C * L.V(y),
+                               "eta_p": L.eta_plating(y)}[name])
+            else:
+                raise ValueError(f"unsupported input symbol {inp!r}")
+        else:
+            spec = ctrl.ControlSpec(name)
+            value = float(inp)
+    elif name in ("dT", "T"):
+        raise NotImplementedError(
+            f"{name}= holds the cell temperature and needs the thermal model "
+            f"(temperature=True), which the port does not have yet")
+    elif name.startswith("dc_"):
+        # derivative hold on the extremal node of the run's starting state,
+        # picked per cell (batched cells may hold different nodes)
+        if name.startswith("dc_s"):
+            electrode = name[5]
+            if electrode == "n" and p.cfg.half_cell:
+                raise ValueError(
+                    "dc_s_n_* controls are meaningless for a half-cell "
+                    "(the lithium foil has no solid concentration states)")
+            idx_all = L.c_s_surface_slice(electrode)
+        else:
+            s = L.sl("c_e")
+            idx_all = np.arange(s.start, s.stop)
+        pick = torch.argmax if name.endswith("max") else torch.argmin
+
+        def init_aux(y0, th, idx_all=idx_all, pick=pick):
+            idx = torch.as_tensor(idx_all, device=y0.device)
+            return idx[pick(y0[:, idx], dim=-1)][:, None]
+
+        def deriv(t, y, yp, th):
+            return torch.gather(yp, 1, th["_ctrl_aux"])[:, 0]
+
+        spec = ctrl.ControlSpec("res", deriv, init_aux=init_aux)
+        value = 0.0 if (isinstance(inp, str) and inp == "hold") else float(inp)
+    else:  # res
+        if isinstance(inp, tuple):
+            value, f = float(inp[0]), ctrl.normalize_func(inp[1])
+        else:
+            f = ctrl.normalize_func(inp)
+        spec = ctrl.ControlSpec("res", f)
+    return name, spec, value, is_rest, False
 
 
 def _host(tensors: dict) -> dict:
@@ -326,7 +376,7 @@ def simulate(p: Model,
     if overrides:
         opts = opts.replace(**overrides)
 
-    name, spec, value, is_rest, _ = _build_control(p, sol, kwargs)
+    name, spec, value, is_rest, is_th = _build_control(p, sol, kwargs)
     if kwargs:
         raise TypeError(f"unknown keyword arguments: {sorted(kwargs)}")
 
@@ -361,7 +411,7 @@ def simulate(p: Model,
     else:
         soc_f = float(p.opts.SOC if SOC is None else SOC)
         _check_parameters_runtime(p)
-        _check_initial_soc(bdict, soc_f, value)
+        _check_initial_soc(bdict, soc_f, spec, value)
         soc0 = torch.full((1,), soc_f, **kw)
         y_start = initial_guess(soc0, th, p.cfg)
         prev_I = torch.zeros(1, **kw)
@@ -369,7 +419,12 @@ def simulate(p: Model,
         t_offset = 0.0
 
     if opts.verbose:
-        print(f"\nRun for {name} = {value:g}C from t = {t_offset:.2f} s "
+        if spec.func is not None:
+            desc = f"{name} function"
+        else:
+            unit = {"I": "C", "V": " V", "P": " W/m²"}.get(name, "")
+            desc = f"{name} = {value:g}{unit}"
+        print(f"\nRun for {desc} from t = {t_offset:.2f} s "
               f"(SOC {float(soc0[0]):.4f})")
 
     # warm-start cache: seed the algebraic block from an earlier identical
@@ -395,7 +450,8 @@ def simulate(p: Model,
         plan = get_plan(p.cfg, p.theta_floats())
         res = run_once(y_start=y_start, soc0=soc0, value=torch.full((1,), value, **kw),
                        tf=tf_run, th=th, bounds=bounds, cfg=p.cfg, spec=spec,
-                       opts=opts, jac_plan=plan, is_rest=is_rest, prev_I=prev_I,
+                       opts=opts, jac_plan=plan, is_rest=is_rest,
+                       is_temperature_hold=is_th, prev_I=prev_I,
                        has_prev=has_prev, tstops=stops_dev)
 
     # the cell's results come off the device in one copy
@@ -412,7 +468,7 @@ def simulate(p: Model,
     flag = int(h["flag"])
     meta = dict(
         method=name,
-        input_repr=repr(value),
+        input_repr=repr(value) if spec.func is None else "function",
         tspan=(t_offset, t_offset + float(h["t_final"])),
         flag=flag,
         exit_reason=exit_reason_string(flag),

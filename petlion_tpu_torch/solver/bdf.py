@@ -129,14 +129,30 @@ def bdf_init(t0, y0, yp0, h0):
         n_rejected=i64(0), n_fails=i64(0))
 
 
+def restart(state: BDFState, mask, t, y, yp, h) -> BDFState:
+    """The cells in `mask` restart from (t, y, yp) with step h at order 1,
+    as after a fresh initialization (D[0] = y, D[1] = yp·h, the rest 0;
+    n_equal 0); the counters and status carry on. The other cells keep
+    `state`."""
+    D = torch.zeros_like(state.D)
+    D[:, 0] = y
+    D[:, 1] = yp * h[:, None]
+    new = state._replace(t=t, h=h, order=torch.ones_like(state.order), D=D,
+                         n_equal=torch.zeros_like(state.n_equal), yp=yp)
+    return select_state(mask, new, state)
+
+
 def initial_step_size(y0, yp0, atol, rtol, t_span):
-    """SciPy-style h0 heuristic, clipped to the run horizon; (B,)."""
+    """SciPy-style h0 heuristic, clipped to the run horizon `t_span` (a
+    number or (B,)); (B,)."""
     scale = atol + rtol * y0.abs()
     d0 = wrms(y0, scale)
     d1 = wrms(yp0, scale)
     h0 = 0.01 * d0 / torch.clamp_min(d1, 1e-10)
     h0 = torch.where(torch.isfinite(h0) & (h0 > 0), h0, 1e-4)
-    return torch.clamp(h0, 1e-10, 0.1 * t_span)
+    h0 = torch.clamp_min(h0, 1e-10)
+    hi = 0.1 * t_span
+    return torch.minimum(h0, hi) if torch.is_tensor(hi) else torch.clamp_max(h0, hi)
 
 
 def dense_eval(D, h, order, t_head, t):

@@ -17,6 +17,7 @@ import torch
 
 from ..config import EXIT_SIMULATING
 from ..physics.residuals import ModelConfig
+from .control import cell_values
 
 
 class BoundsPrev(NamedTuple):
@@ -43,11 +44,18 @@ class BoundsPrev(NamedTuple):
 
 def check_stop(t, y, yp, soc, prev: BoundsPrev, flag, bounds: dict, th,
                cfg: ModelConfig, spec_method: str, *, reltol: float,
-               tf, check_bounds: bool = True, is_rest: bool = False):
+               tf, check_bounds: bool = True, is_rest: bool = False,
+               is_temperature_hold: bool = False, stop_fn=None):
     """One stop-condition sweep over all cells. Returns (new_prev, new_flag).
 
     `flag` is EXIT_SIMULATING (-1) while running; `bounds` is a dict of (B,)
-    tensors (NaN disables: NaN comparisons are False)."""
+    tensors (NaN disables: NaN comparisons are False). `is_temperature_hold`
+    turns the temperature bound off; it matters only to the thermal model,
+    which the port does not have yet, and is threaded through as in the JAX
+    package. `stop_fn(t, y, yp, soc, th)` is the user's stop hook, batch-first:
+    a boolean result fires flag 12 on the accepted step; any other result is
+    a signed margin that fires flag 12 where it crosses 0 upward, in the same
+    smallest-t_frac arbitration as the built-in bounds."""
     L = cfg.layout
     eps = torch.where(t < 1.0, torch.full_like(t, reltol), torch.zeros_like(t))
 
@@ -110,10 +118,22 @@ def check_stop(t, y, yp, soc, prev: BoundsPrev, flag, bounds: dict, th,
     state = fire(state, (bounds["eta_plating_min"] - eta_pl > eps) & (d_eta < 0),
                  prev.eta_plating, bounds["eta_plating_min"], eta_pl, 11)
 
+    stop_g = prev.stop_g
+    if stop_fn is not None:
+        out = cell_values(stop_fn(t, y, yp, soc, th), y)
+        if out.dtype == torch.bool:
+            state["flag"] = torch.where(
+                out & (state["flag"] == EXIT_SIMULATING),
+                torch.full_like(state["flag"], 12), state["flag"])
+        else:
+            stop_g = out
+            state = fire(state, stop_g > eps, prev.stop_g,
+                         torch.zeros_like(stop_g), stop_g, 12)
+
     new_prev = BoundsPrev(
         t_frac=state["t_frac"], V=V, SOC=soc, T=T_mean, c_s_n=c_s_n_max,
         I=I, eta_plating=eta_pl, c_e_min=c_e_min, dfilm=prev.dfilm,
-        stop_g=prev.stop_g)
+        stop_g=stop_g)
     return new_prev, state["flag"]
 
 

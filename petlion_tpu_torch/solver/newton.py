@@ -2,7 +2,10 @@
 (counterpart of the JAX package's ``solver/newton.py``).
 
 1. With YP = 0, iterate Newton on the algebraic sub-vector until
-   ‖ΔY‖ < reltol_init (≤ maxiter iterations), per cell.
+   ‖ΔY‖ < reltol_init (≤ maxiter iterations), per cell. The control row is
+   evaluated a second time with YP_diff := the differential residual, so
+   that a row that reads YP (the derivative holds, user residuals)
+   constrains the algebraic states at initialization.
 2. YP_diff ← differential residual at YP = 0 (the residual is rhs − YP).
 3. YP_alg from a finite-difference probe through the last factorization.
 
@@ -33,21 +36,31 @@ def _select(mask, a, b):
 
 
 def consistent_init(F: Callable, y0, n_diff: int, data: dict, *,
-                    reltol_init=1e-3, maxiter=100, c_e0=1000.0, t0=0.0,
-                    jac_plan=None, th=None) -> InitResult:
+                    reltol_init=1e-3, maxiter=100, c_e0=1000.0, t0=None,
+                    jac_plan=None, th=None, cells=None) -> InitResult:
     """F(t, y, yp, data) -> full residual (B, N) with the control row; `data`
-    holds the per-cell tensors F reads (θ, setpoint). y0: (B, N) guess. With
-    θ (`th`, (B, 1) tensors) the plan may assemble the algebraic block
-    analytically."""
+    holds the per-cell tensors F reads (θ, setpoint). y0: (B, N) guess; t0:
+    each cell's initialization time, (B,) (0 by default; a re-initialization
+    after a discontinuity passes the cells' jump times). With θ (`th`, (B, 1)
+    tensors) the plan may assemble the algebraic block analytically.
+    `cells` (B,) bool: the cells whose iteration the loop waits for (all by
+    default); the others take the first iteration only."""
     nd = n_diff
     dtype = y0.dtype
+    if t0 is None:
+        t0 = torch.zeros(y0.shape[0], dtype=dtype, device=y0.device)
+    data = dict(data, _t_init=t0[:, None])
 
     def alg_res(y_alg, d):
-        # The JAX package evaluates the control row a second time with
-        # yp_diff := r_diff for controls that read YP; constant-current
-        # control does not, so that row equals the first evaluation's.
         y = torch.cat([d["_y_diff"], y_alg], dim=-1)
-        return F(t0, y, torch.zeros_like(y), d)[:, nd:]
+        t = d["_t_init"][:, 0]
+        yp0 = torch.zeros_like(y)
+        r = F(t, y, yp0, d)
+        # the control row with YP_diff := rhs (the residual at YP = 0 is the
+        # rhs, since res = rhs − YP), as the JAX package substitutes it
+        yp_eff = torch.cat([r[:, :nd], yp0[:, nd:]], dim=-1)
+        r2 = F(t, y, yp_eff, d)
+        return torch.cat([r[:, nd:-1], r2[:, -1:]], dim=-1)
 
     def body(y):
         y_diff, y_alg = y[:, :nd], y[:, nd:]
@@ -67,8 +80,9 @@ def consistent_init(F: Callable, y0, n_diff: int, data: dict, *,
     # one unconditional iteration, then per-cell masked iterations
     y, dnorm, lu = body(y0)
     it = torch.ones(y0.shape[0], dtype=torch.int64, device=y0.device)
+    wait = (torch.ones_like(dnorm, dtype=torch.bool) if cells is None else cells)
     while True:
-        live = (it < maxiter) & (dnorm >= reltol_init)
+        live = wait & (it < maxiter) & (dnorm >= reltol_init)
         if not bool(live.any()):
             break
         y_n, dnorm_n, lu_n = body(y)

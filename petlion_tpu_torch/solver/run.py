@@ -5,13 +5,16 @@ The JAX package vmaps a single-cell `lax.while_loop`. Here every state
 tensor carries the cells axis and the host drives the loop: each trip makes
 one BDF attempt for every cell, applies it to the cells still running, and
 does the step bookkeeping (SOC, recording, events) for the cells whose step
-ended. That is one host synchronization per trip (`active.any()`). Cells are
+ended. That is one host synchronization per trip (`active.any()`), and a
+second on a run with a function input (whether some cell's input jumped,
+which a re-initialization then handles for those cells). Cells are
 independent, so each goes through the same arithmetic as under the JAX
 while-loops, and its result is the same.
 """
 
 from __future__ import annotations
 
+import time
 from typing import NamedTuple
 
 import torch
@@ -109,39 +112,74 @@ def _record(bufs, idx, write, t, y, yp, soc, th, cfg: ModelConfig, vec_outs):
         buf[b, idx] = _select(write, val, buf[b, idx])
 
 
-def initial_current_guess(spec: control.ControlSpec, value, y0, cfg: ModelConfig,
-                          prev_I, has_prev):
+def initial_current_guess(spec: control.ControlSpec, value, y0, th,
+                          cfg: ModelConfig, prev_I, has_prev):
     """Y0 with its current seeded per control method, (B, N). `prev_I` and
-    `has_prev` (B,) carry the last current of a continued run; the methods
-    that read them (V, P, η_p, res) are not ported."""
-    if spec.method != "I" or spec.func is not None:
-        raise NotImplementedError(f"initial current for method {spec.method!r}")
+    `has_prev` (B,) carry the last current of a continued run, which P, V,
+    η_p and res reuse."""
+    L = cfg.layout
+    m = spec.method
+    if m == "res":
+        I_guess = torch.where(has_prev, prev_I, torch.ones_like(prev_I))
+    else:
+        t0 = torch.zeros_like(value)
+        v0 = control.control_value(spec, value, t0, y0, torch.zeros_like(y0), th)
+        if m == "I":
+            I_guess = v0
+        elif m == "P":
+            I_guess = torch.where(has_prev, prev_I,
+                                  v0 / (L.V(y0) * calc_I1C(th)[:, 0]))
+        else:  # V, eta_p
+            sign = torch.where(v0 > L.V(y0), 1.0, -1.0).to(y0.dtype)
+            I_guess = torch.where(has_prev & (prev_I != 0), prev_I, sign)
     y0 = y0.clone()
-    y0[:, cfg.layout.sl("I").start] = value
+    y0[:, L.sl("I").start] = I_guess
     return y0
+
+
+# over every run since the last reset: the outer trips, the trips that ran
+# a re-initialization after an input discontinuity, and the host seconds
+# spent in those re-initializations
+TRIPS = {"trips": 0, "reinit": 0, "reinit_s": 0.0}
+
+
+def reset_trip_counts():
+    TRIPS.update(trips=0, reinit=0, reinit_s=0.0)
 
 
 def run_once(*, y_start, soc0, value, tf, th, bounds: dict,
              cfg: ModelConfig, spec: control.ControlSpec, opts: SimOptions,
-             jac_plan, is_rest: bool = False, prev_I=None, has_prev=None,
-             tstops=None) -> RunResultDev:
+             jac_plan, is_rest: bool = False, is_temperature_hold: bool = False,
+             prev_I=None, has_prev=None, tstops=None) -> RunResultDev:
     """Execute one run for a batch of cells.
 
     y_start (B, N): starting states, whose algebraic part is re-initialized;
     soc0, value (B,); th: dict of (B, 1) θ tensors; bounds: dict of (B,)
-    tensors; tf: float. `is_rest` turns the bound checks off (I = 0).
+    tensors; tf: float. `is_rest` turns the bound checks off (I = 0);
+    `is_temperature_hold` turns the temperature bound off.
     `prev_I`, `has_prev` (B,): the last current of a continued run.
     `tstops` (B, K) or None: each cell's explicit stop times; every step
-    ends at or before the cell's next stop (pad a row with inf)."""
+    ends at or before the cell's next stop (pad a row with inf).
+
+    With a function input, each accepted step probes the input at
+    t + reltol; a cell whose input jumps there is re-initialized at the
+    jump (consistent initialization, a fresh step size, BDF order 1)."""
     if opts.jac_reuse:
         raise NotImplementedError("jac_reuse > 0")
-    if opts.stop_function is not None:
-        raise NotImplementedError("stop_function")
     L = cfg.layout
     nd = L.N_diff
     B = y_start.shape[0]
     dev = y_start.device
+    dtype = y_start.dtype
     tf = float(tf)
+
+    # per-run control setup: the dc_* holds pick each cell's node here
+    if spec.init_aux is not None:
+        th = dict(th)
+        th["_ctrl_aux"] = spec.init_aux(y_start, th)
+    if prev_I is None:
+        prev_I = torch.zeros(B, dtype=dtype, device=dev)
+        has_prev = torch.zeros(B, dtype=torch.bool, device=dev)
 
     data = dict(th)
     data[_VALUE] = value[:, None]
@@ -149,11 +187,14 @@ def run_once(*, y_start, soc0, value, tf, th, bounds: dict,
     def F(t, y, yp, d):
         return control.full_residual(spec, d[_VALUE][:, 0], t, y, yp, d, cfg)
 
+    def init_at(y_guess, t0, cells=None):
+        return consistent_init(F, y_guess, nd, data, reltol_init=opts.reltol_init_,
+                               maxiter=opts.init_maxiter, c_e0=1000.0, t0=t0,
+                               jac_plan=jac_plan, th=th, cells=cells)
+
     # ---- consistent initialization -----------------------------------------
-    y0 = initial_current_guess(spec, value, y_start, cfg, prev_I, has_prev)
-    init = consistent_init(F, y0, nd, data, reltol_init=opts.reltol_init_,
-                           maxiter=opts.init_maxiter, c_e0=1000.0,
-                           jac_plan=jac_plan, th=th)
+    y0 = initial_current_guess(spec, value, y_start, data, cfg, prev_I, has_prev)
+    init = init_at(y0, torch.zeros(B, dtype=dtype, device=dev))
     y0, yp0 = init.y, init.yp
 
     # ---- integrator setup ---------------------------------------------------
@@ -181,6 +222,28 @@ def run_once(*, y_start, soc0, value, tf, th, bounds: dict,
                           newton_maxiter=opts.newton_maxiter, hmax=hmax,
                           step_control=opts.step_control)
 
+    def reinit_jumps(st, acc):
+        """Probe the input at t + reltol after each accepted step; re-run the
+        consistent initialization at the jump for the cells whose input
+        jumps there and restart their BDF history at order 1. Runs only on
+        trips where some cell jumped; the others keep `st`."""
+        y, yp, t = st.D[:, 0], st.yp, st.t
+        v_now = control.cell_values(spec.func(t, y, yp, data), y)
+        t_jump = t + opts.reltol
+        v_probe = control.cell_values(spec.func(t_jump, y, yp, data), y)
+        jumped = acc & ((v_probe - v_now).abs()
+                        > opts.abstol + opts.reltol * v_now.abs())
+        if not bool(jumped.any()):
+            return st
+        start = time.perf_counter()
+        init2 = init_at(y, t_jump, cells=jumped)
+        h_new = bdf.initial_step_size(init2.y, init2.yp, atol, opts.reltol,
+                                      torch.clamp_min(tf - t_jump, 1.0))
+        st = bdf.restart(st, jumped, t_jump, init2.y, init2.yp, h_new)
+        TRIPS["reinit"] += 1
+        TRIPS["reinit_s"] += time.perf_counter() - start
+        return st
+
     vec_outs = _vector_outputs(opts, cfg)
     bufs = _make_bufs(opts, cfg, vec_outs, y0)
     all_cells = torch.ones(B, dtype=torch.bool, device=dev)
@@ -191,8 +254,10 @@ def run_once(*, y_start, soc0, value, tf, th, bounds: dict,
     _record(bufs, zeros_i, all_cells, t0, y0, yp0, soc0, th, cfg, vec_outs)
     prev0 = events.BoundsPrev.init(t0)
     flag0 = torch.full((B,), EXIT_SIMULATING, dtype=torch.int64, device=dev)
+    stop_fn = opts.stop_function
     chk = dict(reltol=opts.reltol, tf=tf, check_bounds=opts.check_bounds,
-               is_rest=is_rest)
+               is_rest=is_rest, is_temperature_hold=is_temperature_hold,
+               stop_fn=stop_fn)
     prev0, flag0 = events.check_stop(t0, y0, yp0, soc0, prev0, flag0, bounds,
                                      th, cfg, spec.method, **chk)
     flag0 = torch.where(init.converged, flag0,
@@ -221,9 +286,13 @@ def run_once(*, y_start, soc0, value, tf, th, bounds: dict,
                   & (st0.status == bdf.OK) & (st0.n_steps < opts.maxiters))
         if not bool(active.any()):
             break
+        TRIPS["trips"] += 1
         st, acc, done, tries_new = stepper.step(st0, t_bound_of(st0.t), tries)
         tries = torch.where(active, torch.where(done, zeros_i, tries_new), tries)
         ended = active & done        # cells whose accepted-step loop ended
+
+        if spec.func is not None:
+            st = reinit_jumps(st, ended & acc)
 
         # step bookkeeping, applied to the cells in `ended`
         y, yp, t = st.D[:, 0], st.yp, st.t
@@ -249,13 +318,21 @@ def run_once(*, y_start, soc0, value, tf, th, bounds: dict,
         # cells still retrying keep the rejected attempt's solver state
         rs = rs._replace(bdf=bdf.select_state(active, st, st0))
 
-    return _finish(rs, init, y0, bufs, bounds, th, cfg, opts, vec_outs, tf)
+    stop_is_margin = False
+    if stop_fn is not None:
+        # decided once, from the hook's result type, as the JAX package does
+        probe = control.cell_values(stop_fn(t0, y0, yp0, soc0, th), y0)
+        stop_is_margin = probe.dtype != torch.bool
+    return _finish(rs, init, y0, bufs, bounds, th, cfg, opts, vec_outs, tf,
+                   stop_fn if stop_is_margin else None)
 
 
 def _finish(rs: RunnerState, init, y0, bufs, bounds, th, cfg, opts, vec_outs,
-            tf) -> RunResultDev:
+            tf, stop_margin=None) -> RunResultDev:
     """Exit handling: final flag, dense-output bisection of the crossing, and
-    the last record."""
+    the last record. `stop_margin`: the user's stop hook when it is a signed
+    margin, whose flag 12 is then localized like the built-in bounds (a
+    boolean hook's stop stays on the accepted step)."""
     L = cfg.layout
     B = y0.shape[0]
     st = rs.bdf
@@ -284,10 +361,13 @@ def _finish(rs: RunnerState, init, y0, bufs, bounds, th, cfg, opts, vec_outs,
 
     def g_at(t):
         """Signed margin g > 0 once the firing bound is exceeded, per cell's
-        exit code (codes of absent physics are stubbed at 1)."""
+        exit code (codes of absent physics, and 12 unless the stop hook is a
+        margin, are stubbed at 1)."""
         y, yp = bdf.dense_eval(st.D, st.h, st.order, t_last, t)
         soc = soc_at(t, y)
         one = torch.ones_like(t)
+        g_stop = (one if stop_margin is None
+                  else control.cell_values(stop_margin(t, y, yp, soc, th), y))
         g = torch.stack([
             bounds["V_min"] - L.V(y),                                   # 1
             L.V(y) - bounds["V_max"],                                   # 2
@@ -301,12 +381,12 @@ def _finish(rs: RunnerState, init, y0, bufs, bounds, th, cfg, opts, vec_outs,
             bounds["c_e_min"] - torch.amin(L.get(y, "c_e"), dim=-1),    # 9
             one,                                                        # 10
             bounds["eta_plating_min"] - L.eta_plating(y),               # 11
-            one,                                                        # 12
+            g_stop,                                                     # 12
         ], dim=-1)
         code_idx = torch.clamp(flag - 1, 0, 11)
         return torch.gather(g, 1, code_idx[:, None])[:, 0]
 
-    localizable = (flag >= 1) & (flag <= 11)
+    localizable = (flag >= 1) & (flag <= (11 if stop_margin is None else 12))
     g_lo = g_at(rs.t_prev)
     use_bisect = do_interp & localizable & (g_lo < 0)
 

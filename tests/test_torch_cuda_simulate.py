@@ -76,3 +76,53 @@ def test_per_cell_tstops_on_card_match_cpu(dtype):
         for k in ("flag", "n_steps", "n_rejected", "n_saved"):
             np.testing.assert_array_equal(getattr(g, k).cpu().numpy(), getattr(c, k).numpy())
         np.testing.assert_allclose(t, c.bufs["t"].numpy(), rtol=1e-7, atol=0)
+
+
+def test_cc_cv_on_card_matches_cpu():
+    """Path 6's CC→CV pair (2C from SOC 0 to 4.1 V, then V = "hold" to
+    I_min 0.05C or SOC_max), float64: the card's runs (K1 for every 71x71
+    core) equal the CPU's to 1e-9 on t, V and Y_final, with the same exits
+    and step counts."""
+    _need_card()
+    from petlion_tpu_torch import main_path as mp
+    sols = {}
+    for dev in ("cpu", "cuda"):
+        p = ptt.petlion(ptt.LCO, device=dev, dtype=torch.float64)
+        before = gk.LAUNCHES["gj_inverse"]
+        sols[dev] = mp.run_cccv(p)[0]
+        if dev == "cuda":
+            assert gk.LAUNCHES["gj_inverse"] > before
+    c, g = sols["cpu"], sols["cuda"]
+    assert g.exit_reasons() == c.exit_reasons()
+    assert g.exit_reasons()[0] == "Above max. voltage"
+    assert [r.n_steps for r in g.results] == [r.n_steps for r in c.results]
+    for k in ("t", "V"):
+        np.testing.assert_allclose(g.arrays[k], c.arrays[k], rtol=1e-9, atol=1e-9)
+    assert np.max(np.abs(g.Y_final - c.Y_final) / (1 + np.abs(c.Y_final))) < 1e-9
+
+
+def test_gitt_on_card_matches_cpu():
+    """Path 5's pulse at B = 3 in float64 (three pulse ends from the path's
+    seed, each cell re-initialized at its own): the card's run equals the
+    CPU's (flags, step counts, the re-initialization trips; t, V and
+    Y_final within 1e-9)."""
+    _need_card()
+    from petlion_tpu_torch import main_path as mp
+    from petlion_tpu_torch.solver import run as runner
+    res, reinit = {}, {}
+    for dev in ("cpu", "cuda"):
+        p = ptt.petlion(ptt.LCO, device=dev, dtype=torch.float64)
+        p.opts = p.opts.replace(**mp.BENCH_OPTS)
+        runner.reset_trip_counts()
+        res[dev] = mp.run_gitt(p, seed=0, n_cells=3)[0]
+        reinit[dev] = runner.TRIPS["reinit"]
+    c, g = res["cpu"], res["cuda"]
+    assert reinit["cuda"] == reinit["cpu"] > 0
+    assert (g.flag.cpu().numpy() == 0).all()
+    for k in ("flag", "n_steps", "n_rejected", "n_saved"):
+        np.testing.assert_array_equal(getattr(g, k).cpu().numpy(), getattr(c, k).numpy())
+    for k in ("t", "V"):
+        np.testing.assert_allclose(g.bufs[k].cpu().numpy(), c.bufs[k].numpy(),
+                                   rtol=1e-9, atol=1e-9)
+    yc = c.y_final.numpy()
+    assert np.max(np.abs(g.y_final.cpu().numpy() - yc) / (1 + np.abs(yc))) < 1e-9

@@ -118,7 +118,7 @@ def test_options_warnings_and_errors(models):
     assert any("solver failure" in m for m in msgs) and failed.t[-1] < 3600.0
 
     for bad, err in ((dict(I=-1, V=4.0), ValueError), (dict(I="hold"), ValueError),
-                     (dict(I=-1, bogus=1), TypeError), (dict(V=4.0), NotImplementedError),
+                     (dict(I=-1, bogus=1), TypeError), (dict(dT="hold"), NotImplementedError),
                      (dict(I=-1, fast_solver=False), NotImplementedError),
                      (dict(I=-1, SOC=0.0), ValueError)):
         with pytest.raises(err):

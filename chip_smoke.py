@@ -92,9 +92,42 @@ Phases, each of which must pass (any failure exits non-zero and prints no
    and eta_p = 0.05 V for 60 s (|eta_p - 0.05| < 1e-6) from SOC 0.5. K1 must
    be launched; the warm wall of the CC→CV pair is printed.
 
+9. k1_core92 (after the K1 phase): K1 at the cores of path 7 (NMC + SEI,
+   92 states) and of the stress model (91) in float32, at (256, n): random
+   equilibrated matrices against the plain version, the mirror (≤ 2e-4)
+   and a float64 inverse (≤ 1e-5 of the scale); the real equilibrated
+   cores (8 states tiled to 256) in float32 as close to float64 as the
+   plain versions (4× plus 1e-5), in float64 against the mirror (≤ 1e-8);
+   the time at (256, 92) over eight rotating inputs behind the spin, beside
+   its bound, the plain version and torch.linalg.inv_ex, and the registers
+   and spills of the tile instance it takes (T = 16, P = 8) from ptxas.
+10. sei (path 7, `main_path.run_sei`): 256 NMC cells with SEI aging in
+   float32, a 1C discharge from SOC 1, θ perturbed from a torch.Generator
+   seed, on the default route (K1 must launch at n = 92) and on the
+   full-kernel route (K2 and K3, K3 at n = 92): every cell exits with flag
+   0, 1 or 3, its recorded SOH never rises (1e-12), its film stays ≥ 0; the
+   two routes agree in V within 1e-4 V on the saved points where they step
+   in lockstep and at the exit, and in exit time within 1e-4 (relative);
+   cell 0 lies within 2 mV of the same cell in float64 on the card (read
+   through that run's interpolation, up to 100 s before the exit); three
+   warm runs give discharges/s, steps and attempts per cell.
+11. sei_cycling (`main_path.run_sei_cycling`): the JAX suite's
+   4_sei_cycling on one cell in float32 and in float64 — the exit sequence
+   "Above max. SOC", then "Below min. SOC" / "Above max. SOC" three times,
+   SOH never rising over the chain, the final SOH of the two within 1e-5
+   (relative); K1 must launch.
+12. variants: one float64 cell, 600 s of a 1C discharge, of
+   NMC_LGM50(aging="stress"), LCO(solid_diffusion="polynomial"),
+   LCO(Fickian_method="spectral") and LCO(anode="Li_metal"), on the card
+   and on the CPU in this process: the same exit, steps and rejections, V
+   within 1e-9, K1 launched on the card; then two half cells on the
+   full-kernel route (K2 on the cathode particles and the c_e group, none
+   for the absent anode; K3), card = CPU within 1e-9.
+
 The line before the last is the kernels' JSON record (one entry per kernel;
 `launches` is the count of the paths that run it: path 1, simulate, tstops,
-gitt and cccv for K1, path 2 for K2 and K3); the last line is
+gitt and cccv for K1, path 2 for K2 and K3; `gj_inverse_n92` is K1 at path
+7's 92-state core, with the launches at n = 92 on path 7); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -247,10 +280,54 @@ def _bound(n_bytes, flops):
     return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms else "operations")
 
 
-def phase_k1(D):
+def _k1_real_cores(D, reps):
+    """K1 on the equilibrated real cores `D` tiled `reps` times: the float32
+    errors against the float64 mirror, relative to each matrix's scale, of
+    the kernel, the mirror and the blocked version at bs = 8 and at the
+    plain version's width, and the float64 kernel's error."""
     import torch
     from petlion_tpu_torch.ops import gj_kernel as gk
     from petlion_tpu_torch.solver.linsolve import _equilibrate
+    As = _equilibrate(D.to("cuda"))[0].repeat(reps, 1, 1).contiguous()
+    ref = gk.gj_inverse_inplace(As)
+    scale = ref.abs().amax(dim=(-2, -1), keepdim=True)
+
+    def rel(X):
+        return float(((X.double() - ref).abs() / scale).max())
+
+    n = As.shape[-1]
+    return tuple(As.shape), dict(
+        kernel=rel(gk.gj_inverse_cuda(As.float())),
+        mirror=rel(gk.gj_inverse_inplace(As.float())),
+        b8=rel(gk.gj_inverse_blocked(As.float(), bs=8)),
+        best=rel(gk.gj_inverse_blocked(As.float(), bs=gk._best_bs(n))),
+        scalar=rel(gk.gj_inverse_inplace(As.float(), bs=1)),
+        f64=rel(gk.gj_inverse_cuda(As)))
+
+
+def _k1_timing(B, n, rotating, seed):
+    """K1's device ms and host µs per call at (B, n) float32 over `rotating`
+    inputs behind the spin, the plain version's and torch.linalg.inv_ex's
+    ms, and the bound: a dict of the record's timing keys."""
+    import torch
+    from petlion_tpu_torch.ops import gj_kernel as gk
+    bufs = [_equilibrated_inputs(B, n, torch.float32, seed=seed + i) for i in range(rotating)]
+    ms, host_us = device_ms(gk.gj_inverse_cuda, bufs, reps=200)
+    plain_ms, _ = device_ms(lambda A: gk.gj_inverse_blocked(A, bs=gk._best_bs(n)), bufs,
+                            reps=8, spin=False)
+    library_ms, _ = device_ms(lambda A: torch.linalg.inv_ex(A)[0], bufs, reps=8, spin=False)
+    bound_ms, by = _bound(2 * B * n * n * 4, 2 * n ** 3 * B)
+    print(f"kernel timing ({B}, {n}) f32, {rotating} rotating inputs: kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, torch.linalg.inv_ex {library_ms:.4f} ms, bound "
+          f"{bound_ms:.4f} ms ({by}; {bound_ms / ms:.1%} of it reached); host "
+          f"{host_us:.1f} us per gj_inverse_cuda call")
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms, bound_ms=bound_ms,
+                bound_by=by)
+
+
+def phase_k1(D):
+    import torch
+    from petlion_tpu_torch.ops import gj_kernel as gk
     rows = {}
     for B, n in ((1024, 71), (5, 71), (8, 37), (3, 17)):
         A = _equilibrated_inputs(B, n, torch.float32, seed=B * 1000 + n)
@@ -288,39 +365,15 @@ def phase_k1(D):
         check(worst <= tol, f"kernel disagrees with its mirror in {dtype}: {worst}")
 
     # the Schur cores of real Newton matrices (condition ~4e10)
-    As = _equilibrate(D.to("cuda"))[0].repeat(128, 1, 1).contiguous()
-    ref = gk.gj_inverse_inplace(As)
-    scale = ref.abs().amax(dim=(-2, -1), keepdim=True)
-
-    def rel(X):
-        return float(((X.double() - ref).abs() / scale).max())
-
-    e_k = rel(gk.gj_inverse_cuda(As.float()))
-    e_m = rel(gk.gj_inverse_inplace(As.float()))
-    e_b8 = rel(gk.gj_inverse_blocked(As.float(), bs=8))
-    e_b = rel(gk.gj_inverse_blocked(As.float(), bs=gk._best_bs(71)))
-    e_s = rel(gk.gj_inverse_inplace(As.float(), bs=1))
-    e_64 = float(((gk.gj_inverse_cuda(As) - ref).abs() / scale).max())
-    print(f"K1 real cores {tuple(As.shape)}: f32 error vs f64 / scale: kernel {e_k:.3e}, "
-          f"mirror {e_m:.3e}, blocked bs=8 {e_b8:.3e}, blocked bs={gk._best_bs(71)} "
-          f"{e_b:.3e}, scalar in-place {e_s:.3e}; f64 kernel vs mirror {e_64:.3e}")
-    check(e_k <= 4 * e_m + 1e-5 and e_k <= 4 * e_b8 + 1e-5,
-          f"K1 less accurate than plain on real cores: {e_k}")
-    check(e_64 <= 1e-8, f"K1 float64 disagrees on real cores: {e_64}")
-
-    B, n = 1024, 71
-    bufs = [_equilibrated_inputs(B, n, torch.float32, seed=7 + i) for i in range(ROTATING)]
-    ms, host_us = device_ms(gk.gj_inverse_cuda, bufs, reps=200)
-    plain_ms, _ = device_ms(lambda A: gk.gj_inverse_blocked(A, bs=gk._best_bs(n)), bufs,
-                            reps=8, spin=False)
-    library_ms, _ = device_ms(lambda A: torch.linalg.inv_ex(A)[0], bufs, reps=8, spin=False)
-    bound_ms, by = _bound(2 * B * n * n * 4, 2 * n ** 3 * B)
-    print(f"kernel timing ({B}, {n}) f32, {ROTATING} rotating inputs: kernel {ms:.4f} ms, "
-          f"plain {plain_ms:.4f} ms, torch.linalg.inv_ex {library_ms:.4f} ms, bound "
-          f"{bound_ms:.4f} ms ({by}; {bound_ms / ms:.1%} of it reached); host "
-          f"{host_us:.1f} us per gj_inverse_cuda call")
-    return dict(max_abs_err=rows[(1024, 71)], ms=ms, plain_ms=plain_ms,
-                library_ms=library_ms, bound_ms=bound_ms, bound_by=by)
+    shape, e = _k1_real_cores(D, 128)
+    print(f"K1 real cores {shape}: f32 error vs f64 / scale: kernel {e['kernel']:.3e}, "
+          f"mirror {e['mirror']:.3e}, blocked bs=8 {e['b8']:.3e}, blocked "
+          f"bs={gk._best_bs(71)} {e['best']:.3e}, scalar in-place {e['scalar']:.3e}; "
+          f"f64 kernel vs mirror {e['f64']:.3e}")
+    check(e["kernel"] <= 4 * e["mirror"] + 1e-5 and e["kernel"] <= 4 * e["b8"] + 1e-5,
+          f"K1 less accurate than plain on real cores: {e['kernel']}")
+    check(e["f64"] <= 1e-8, f"K1 float64 disagrees on real cores: {e['f64']}")
+    return dict(max_abs_err=rows[(1024, 71)], **_k1_timing(1024, 71, ROTATING, seed=7))
 
 
 def phase_k2(groups):
@@ -820,6 +873,283 @@ def phase_cccv(card):
     return launches
 
 
+def _ptxas_instance(log, tag):
+    """(registers, (spill store bytes, spill load bytes)) of the kernel
+    instance whose mangled name contains `tag`, from nvcc's -Xptxas -v
+    output (None where ptxas did not say)."""
+    import re
+    regs = spill = None
+    cur = ""
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if m:
+            cur = m.group(1)
+            continue
+        if tag not in cur:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            spill = (int(m.group(1)), int(m.group(2)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            regs = int(m.group(1))
+    return regs, spill
+
+
+def phase_k1_core92(cores):
+    """K1 at the cores of path 7 (NMC+SEI, 92 states) and of the stress
+    model (91): random equilibrated matrices at (256, n) in float32 against
+    the plain blocked version, the mirror and a float64 inverse; the real
+    equilibrated cores (8 states tiled to 256) in float32 against float64,
+    as accurate as the plain versions; float64 against the mirror. Times the
+    kernel at (256, 92) float32 over rotating inputs behind the spin, beside
+    its bound, the plain version and torch.linalg.inv_ex, and prints the
+    registers and spills of the tile instance it takes there (T = 16, P = 8)."""
+    import torch
+    from petlion_tpu_torch.ops import gj_kernel as gk
+    record = None
+    for label, D in cores:
+        n = D.shape[-1]
+        A = _equilibrated_inputs(256, n, torch.float32, seed=256000 + n)
+        X = gk.gj_inverse_cuda(A)
+        err = float((X - gk.gj_inverse_blocked(A, bs=gk._best_bs(n))).abs().max())
+        err_m = float((X - gk.gj_inverse_inplace(A)).abs().max())
+        X64 = torch.linalg.inv(A.double())
+        err_64 = float(((X.double() - X64).abs()
+                        / X64.abs().amax(dim=(-2, -1), keepdim=True)).max())
+        eye = torch.eye(n, dtype=torch.float64, device="cuda")
+        resid = float((A.double() @ X.double() - eye).abs().amax(dim=(-2, -1)).max())
+        print(f"K1 f32 (256, {n}) [{label} core size]: max|kernel - plain| = {err:.3e}, "
+              f"max|kernel - mirror| = {err_m:.3e}, vs the float64 inverse / scale "
+              f"{err_64:.3e}, max ||AX - I||inf = {resid:.3e}")
+        check(err <= 2e-4 and err_m <= 2e-4, f"K1 disagrees with plain at (256, {n})")
+        check(err_64 <= 1e-5 and resid < 1e-3, f"K1 inverse off at (256, {n})")
+
+        shape, e = _k1_real_cores(D, 32)
+        print(f"K1 real {label} cores {shape}: f32 error vs f64 / scale: kernel "
+              f"{e['kernel']:.3e}, mirror {e['mirror']:.3e}, blocked bs=8 {e['b8']:.3e}; "
+              f"f64 kernel vs mirror {e['f64']:.3e}")
+        check(e["kernel"] <= 4 * e["mirror"] + 1e-5 and e["kernel"] <= 4 * e["b8"] + 1e-5,
+              f"K1 less accurate than plain on the real {label} cores: {e['kernel']}")
+        check(e["f64"] <= 1e-8, f"K1 float64 disagrees on the real {label} cores: {e['f64']}")
+        if record is None:
+            record = dict(max_abs_err=err)
+
+    n = cores[0][1].shape[-1]
+    record.update(_k1_timing(256, n, 8, seed=92))     # 8 × 8.7 MB, beyond the L2
+    regs, spill = _ptxas_instance(gk.BUILD_LOGS.get("gj_inverse", ""),
+                                  "gj_inverse_kernelIfLi16ELi8E")
+    print(f"K1 tile T = 16, P = 8 (float), which n = {n} takes: {regs} registers, spill "
+          f"stores/loads {spill} bytes")
+    record.update(shape=[256, n, n], registers=regs,
+                  spill_bytes=None if spill is None else list(spill))
+    return record
+
+
+def check_sei(res, p, name):
+    """Path 7's per-cell checks: flag 0, 1 or 3; the recorded SOH
+    non-increasing (to 1e-12); film ≥ 0; finite final states."""
+    import numpy as np
+    flags = res.flag.cpu().numpy()
+    check(bool(np.isin(flags, (0, 1, 3)).all()),
+          f"{name}: cells exited with flags {sorted(set(flags.tolist()))}")
+    soh = res.bufs["SOH"][..., 0].cpu().double().numpy()
+    n_saved = res.n_saved.cpu().numpy()
+    rise = max(float(np.diff(soh[b, :n_saved[b]]).max(initial=0.0))
+               for b in range(len(n_saved)))
+    check(rise <= 1e-12, f"{name}: SOH rises by {rise}")
+    y = res.y_final.cpu().double().numpy()
+    film = y[:, p.layout.sl("film")]
+    check(float(film.min()) >= 0.0, f"{name}: negative film {film.min()}")
+    check(bool(np.isfinite(y).all()), f"{name}: non-finite final states")
+    return rise, float(film.max())
+
+
+def phase_sei(card):
+    """Path 7 (NMC with SEI aging, 256 cells, float32): the default route
+    with K1 at the 92-state core, cell 0 against the same cell in float64
+    on the card, the full-kernel route (K2, K3) against it, three warm
+    runs. Returns (launches of route 1, launches of route 2)."""
+    import numpy as np
+    import torch
+    import petlion_tpu_torch as ptt
+    from petlion_tpu_torch import main_path as mp
+    from petlion_tpu_torch.ops import gj_kernel as gk
+
+    p = mp.sei_model(device="cuda")
+    L = p.layout
+    out = {}
+    for name, route in (("path 7", mp.PATH1), ("path 7, full-kernel route", mp.PATH2)):
+        gk.reset_launch_counts()
+        res, wall = mp.run_sei(p, seed=0, route=route)
+        launches = dict(gk.LAUNCHES)
+        by_n = {k: dict(sorted(v.items())) for k, v in gk.LAUNCHES_BY_N.items()}
+        rise, film_max = check_sei(res, p, name)
+        steps = res.n_steps.cpu().numpy().astype(float)
+        att = steps + res.n_rejected.cpu().numpy()
+        flags = res.flag.cpu().numpy()
+        print(f"{name} (first run, includes plan build): {wall:.3f} s for {mp.SEI_B} cells, "
+              f"launches {launches}, by n {by_n}; flags "
+              f"{dict(zip(*np.unique(flags, return_counts=True)))}; steps/cell mean "
+              f"{steps.mean():.2f}, attempts/cell mean {att.mean():.2f} max {att.max():.0f}; "
+              f"largest SOH rise {rise:.1e}, largest film {film_max:.3e} m")
+        out[name] = (launches, by_n, res)
+    launches1, by_n1, res1 = out["path 7"]
+    launches2, by_n2, res2 = out["path 7, full-kernel route"]
+    check(by_n1["gj_inverse"].get(92, 0) > 0, "path 7 never launched K1 at n = 92")
+    check(launches2["gj_blocks"] > 0 and launches2["dchain"] > 0,
+          "path 7's full-kernel route did not launch K2 and K3")
+    check(by_n2["dchain"].get(92, 0) > 0, "path 7's full-kernel route never ran K3 at n = 92")
+
+    # route 2 against route 1, per cell: V on the saved points while the two
+    # routes step in lockstep (recorded times within 1e-2 s; float32 rounding
+    # of the two factorizations moves the step sizes apart later), V and
+    # time at the exit
+    t1, V1 = (res1.bufs[k].cpu().double().numpy() for k in ("t", "V"))
+    t2, V2 = (res2.bufs[k].cpu().double().numpy() for k in ("t", "V"))
+    n1, n2 = res1.n_saved.cpu().numpy(), res2.n_saved.cpu().numpy()
+    dv_routes, n_lock = 0.0, 0
+    for b in range(len(n1)):
+        m = min(n1[b], n2[b])
+        close = np.abs(t1[b, :m] - t2[b, :m]) <= 1e-2
+        k = m if close.all() else int(np.argmin(close))
+        n_lock += k
+        if k:
+            dv_routes = max(dv_routes, float(np.abs(V1[b, :k] - V2[b, :k]).max()))
+    dv_end = float((L.V(res1.y_final) - L.V(res2.y_final)).abs().max())
+    dt_end = float(((res1.t_final - res2.t_final).abs() / res1.t_final).max())
+    print(f"path 7 full-kernel route against the default route: max |dV| {dv_routes:.3e} V "
+          f"on {n_lock} of {int(n1.sum())} saved points in lockstep, {dv_end:.3e} V and "
+          f"{dt_end:.2e} (relative) in time at the exit; steps equal in "
+          f"{int((res1.n_steps == res2.n_steps).sum())} of {mp.SEI_B} cells")
+    check(dv_routes <= 1e-4 and dv_end <= 1e-4, "path 7: the two routes disagree in V")
+    check(dt_end <= 1e-4, "path 7: the two routes exit at different times")
+
+    # cell 0 (published θ) against the same cell in float64 on the card
+    p64 = mp.sei_model(device="cuda", dtype=torch.float64)
+    s64 = ptt.simulate(p64, mp.TF, I=-1, SOC=1)
+    tq = t1[0, :n1[0]]
+    tq = tq[tq <= float(s64.t[-1]) - 100.0]
+    dv64 = float(np.abs(s64(tq).V - np.interp(tq, t1[0, :n1[0]], V1[0, :n1[0]])).max())
+    print(f"path 7 cell 0 float32 against float64 on the card: max |dV| {dv64 * 1e3:.3f} mV "
+          f"on {len(tq)} saved points up to 100 s before the exit; exit "
+          f"{float(res1.t_final[0]):.3f} s against {float(s64.t[-1]):.3f} s "
+          f"({s64.final_exit_reason()!r})")
+    check(dv64 <= 2e-3, f"path 7 cell 0: {dv64} V off the float64 run")
+
+    walls = []
+    for _ in range(mp.WARM_RUNS):
+        r, w = mp.run_sei(p, seed=1)
+        walls.append(w)
+    check_sei(r, p, "path 7 warm run")
+    med, spread, ws = _walls_line(walls)
+    s = r.n_steps.cpu().numpy().astype(float)
+    a = s + r.n_rejected.cpu().numpy()
+    print(f"path 7 (warm, {len(walls)} runs of one batch): walls {ws} s, median {med:.3f} s "
+          f"= {mp.SEI_B / med:.1f} discharges/s, spread {spread:.1%}; steps/cell mean "
+          f"{s.mean():.2f}, attempts/cell mean {a.mean():.2f} max {a.max():.0f} [{card}]")
+    return launches1, by_n1, launches2
+
+
+SEI_CYCLING_EXITS = ["Above max. SOC"] + ["Below min. SOC", "Above max. SOC"] * 3
+
+
+def phase_sei_cycling(card):
+    """The SEI cycling chain (3.5 cycles) on one float32 cell: the exit
+    sequence of the JAX suite's 4_sei_cycling, SOH non-increasing over the
+    chain, the final SOH within 1e-5 (relative) of the float64 chain on the
+    card. Returns the K1 launches of the float32 chain."""
+    import numpy as np
+    import torch
+    from petlion_tpu_torch import main_path as mp
+    from petlion_tpu_torch.ops import gj_kernel as gk
+
+    soh_end = {}
+    for dtype in (torch.float32, torch.float64):
+        p = mp.sei_model(device="cuda", dtype=dtype)
+        gk.reset_launch_counts()
+        sol, wall = mp.run_sei_cycling(p)
+        if dtype == torch.float32:
+            launches = gk.LAUNCHES["gj_inverse"]
+        soh = np.asarray(sol.arrays["SOH"], dtype=np.float64)[:, 0]
+        rise = float(np.diff(soh).max())
+        soh_end[dtype] = float(soh[-1])
+        print(f"sei cycling {str(dtype)[6:]}: {wall:.3f} s, exits {sol.exit_reasons()}, "
+              f"final SOH {soh[-1]:.7f}, largest SOH rise {rise:.1e}, steps "
+              f"{[r.n_steps for r in sol.results]}, attempts "
+              f"{[r.n_steps + r.n_rejected for r in sol.results]}")
+        check(sol.exit_reasons() == SEI_CYCLING_EXITS,
+              f"sei cycling {dtype}: exits {sol.exit_reasons()}")
+        check(rise <= 1e-12, f"sei cycling {dtype}: SOH rises by {rise}")
+    gap = abs(soh_end[torch.float32] - soh_end[torch.float64]) / soh_end[torch.float64]
+    print(f"sei cycling: final SOH float32 against float64 {gap:.2e} (relative); "
+          f"{launches} K1 launches in the float32 chain [{card}]")
+    check(gap <= 1e-5, f"sei cycling: final SOH {gap} off the float64 chain")
+    check(launches > 0, "the sei cycling chain never launched K1")
+    return launches
+
+
+VARIANTS = (("NMC_LGM50", dict(temperature=False, aging="stress")),
+            ("LCO", dict(solid_diffusion="polynomial")),
+            ("LCO", dict(Fickian_method="spectral")),
+            ("LCO", dict(anode="Li_metal")))
+
+
+def phase_variants(card):
+    """One float64 cell, a 600 s 1C discharge from SOC 1, of each physics
+    variant in VARIANTS, on the card and on the CPU in this process: the
+    same exit and step counts, V within 1e-9, K1 launched on the card; then
+    two half cells on the full-kernel route (K2 on the particle and c_e
+    groups, none for the absent anode; K3 on the chain), card = CPU. Returns
+    the K1 launches of the phase."""
+    import numpy as np
+    import torch
+    import petlion_tpu_torch as ptt
+    from petlion_tpu_torch.ops import gj_kernel as gk
+    from petlion_tpu_torch.ops.plan import FULL_KERNEL_ROUTE
+
+    k1 = 0
+    for chem, kw in VARIANTS:
+        sols = {}
+        for dev in ("cuda", "cpu"):
+            p = ptt.petlion(getattr(ptt, chem), device=dev, dtype=torch.float64, **kw)
+            gk.reset_launch_counts()
+            sols[dev] = ptt.simulate(p, 600.0, I=-1, SOC=1)
+            if dev == "cuda":
+                launches = gk.LAUNCHES["gj_inverse"]
+        a, b = sols["cuda"], sols["cpu"]
+        ra, rb = a.results[-1], b.results[-1]
+        dv = float(np.abs(a.V - b.V).max()) if len(a.V) == len(b.V) else float("inf")
+        print(f"variant {chem}({kw}): N_tot {p.layout.N_tot}, exit {a.final_exit_reason()!r}, "
+              f"steps {ra.n_steps} / {rb.n_steps} (card / CPU), rejected {ra.n_rejected} / "
+              f"{rb.n_rejected}, max |V card - V CPU| {dv:.2e}, V_end {float(a.V[-1]):.6f}; "
+              f"{launches} K1 launches")
+        check(ra.flag == rb.flag and ra.n_steps == rb.n_steps
+              and ra.n_rejected == rb.n_rejected, f"variant {chem}{kw}: card and CPU part")
+        check(dv <= 1e-9, f"variant {chem}{kw}: V card - CPU {dv}")
+        check(launches > 0, f"variant {chem}{kw} never launched K1")
+        k1 += launches
+
+    res = {}
+    for dev in ("cuda", "cpu"):
+        p = ptt.petlion(ptt.LCO, device=dev, dtype=torch.float64, anode="Li_metal")
+        gk.reset_launch_counts()
+        res[dev] = ptt.batch_simulate(p, 600.0, I=-1.0, SOC=1.0, route=FULL_KERNEL_ROUTE,
+                                      theta_batch={"D_sp": np.array([1e-14, 1.05e-14])})
+        if dev == "cuda":
+            by_n = {k: dict(sorted(v.items())) for k, v in gk.LAUNCHES_BY_N.items()}
+    a, b = res["cuda"], res["cpu"]
+    dy = float((a.y_final.cpu() - b.y_final).abs().max() / b.y_final.abs().max())
+    print(f"half cell on the full-kernel route, 2 cells: launches by n {by_n}; "
+          f"flags {a.flag.tolist()}, steps {a.n_steps.tolist()} / {b.n_steps.tolist()} "
+          f"(card / CPU), max |y card - y CPU| / max |y| {dy:.2e} [{card}]")
+    check(by_n["gj_blocks"] and by_n["dchain"], "half cell: K2 or K3 not launched")
+    check(a.flag.tolist() == b.flag.tolist() and a.n_steps.tolist() == b.n_steps.tolist(),
+          "half cell, full-kernel route: card and CPU part")
+    check(dy <= 1e-9, f"half cell, full-kernel route: card - CPU {dy}")
+    return k1
+
+
 def main():
     import numpy as np
     import torch
@@ -833,6 +1163,11 @@ def main():
         from petlion_tpu_torch.main_path import newton_matrices
         D, Dp, sizes, groups = newton_matrices()
         k1 = phase_k1(D)
+        import petlion_tpu_torch as ptt
+        D92 = newton_matrices(chemistry=ptt.NMC, aging="SEI")[0]
+        D91 = newton_matrices(chemistry=ptt.NMC_LGM50, temperature=False,
+                              aging="stress")[0]
+        k1_92 = phase_k1_core92([("SEI", D92), ("stress", D91)])
         k2 = phase_k2(groups)
         k3 = phase_k3(Dp, sizes)
         launches, path1 = phase_main(card)
@@ -841,6 +1176,9 @@ def main():
         k1_tstops = phase_tstops(card, oracle, path1)
         k1_gitt = phase_gitt(card)
         k1_cccv = phase_cccv(card)
+        sei1, sei1_by_n, sei2 = phase_sei(card)
+        k1_cycling = phase_sei_cycling(card)
+        k1_variants = phase_variants(card)
     except Exception:   # report any phase failure and exit non-zero
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -849,12 +1187,19 @@ def main():
                    + k1_cccv)
     print(f"K1 launches: path 1 {launches['path 1']['gj_inverse']}, simulate "
           f"{k1_simulate}, tstops {k1_tstops}, gitt {k1_gitt}, cccv {k1_cccv}, "
-          f"in all {k1_launches}")
+          f"in all {k1_launches}; path 7 {sei1['gj_inverse']} "
+          f"({sei1_by_n['gj_inverse'].get(92, 0)} at n = 92), sei cycling {k1_cycling}, "
+          f"variants {k1_variants}; path 7's full-kernel route: K2 {sei2['gj_blocks']}, "
+          f"K3 {sei2['dchain']}")
     records = [
         {"name": "gj_inverse", "route": "cuda",
          "source": "petlion_tpu_torch/csrc/gj_inverse.cu",
          "replaces": "petlion_tpu/ops/pallas_gj.py:57",
          "launches": k1_launches, **k1},
+        {"name": "gj_inverse_n92", "route": "cuda",
+         "source": "petlion_tpu_torch/csrc/gj_inverse.cu",
+         "replaces": "petlion_tpu/ops/pallas_gj.py:57",
+         "launches": sei1_by_n["gj_inverse"].get(92, 0), **k1_92},
         {"name": "gj_blocks", "route": "cuda",
          "source": "petlion_tpu_torch/csrc/gj_blocks.cu",
          "replaces": "petlion_tpu/ops/pallas_gj.py:57",

@@ -12,11 +12,20 @@ Entry points run on CUDA unless the caller passes ``device="cpu"``.
     res = batch_simulate(p, 3.9e3, I=-1, SOC=1, theta_batch={...})
 """
 
-from .chemistry import LCO
+from .chemistry import LCO, NMC, NMC_LGM50
 from .config import (Bounds, Discretizations, EXIT_REASONS, Numerics,
                      SimOptions)
 from .convert import model_from_numpy
 from .layout import StateLayout
+from .physics import kinetics, ocv, transport
+from .physics.kinetics import rxn_BV, rxn_MHC, rxn_BV_gamma_mod_01, MHC_kfunc
+from .physics.ocv import (OCV_LCO, OCV_LiC6, OCV_NMC, OCV_LiC6_with_NMC,
+                          OCV_NMC_LGM50, OCV_LiC6_LGM50)
+from .physics.transport import (D_s_eff, D_s_eff_isothermal, rxn_rate,
+                                rxn_rate_isothermal, D_eff, D_eff_linear,
+                                D_eff_linear_one_term, K_eff, K_eff_isothermal,
+                                thermodynamic_factor,
+                                thermodynamic_factor_linear)
 from .parallel.batch import batch_simulate
 from .physics.residuals import ModelConfig, calc_I1C, residual_core
 from .sim import (Model, calc_OCV, calc_R_internal, petlion, simulate,
@@ -33,11 +42,17 @@ def exit_reasons(sol: Solution):
 
 
 __all__ = [
-    "LCO", "Bounds", "Discretizations", "EXIT_REASONS", "Numerics",
+    "LCO", "NMC", "NMC_LGM50", "Bounds", "Discretizations", "EXIT_REASONS", "Numerics",
     "SimOptions", "model_from_numpy", "StateLayout", "batch_simulate",
     "ModelConfig", "calc_I1C", "residual_core", "Model", "petlion",
     "simulate", "simulate_cont", "Solution", "RunResult", "reset_t",
     "final_exit_reason", "exit_reasons", "calc_OCV", "calc_R_internal",
+    "rxn_BV", "rxn_MHC", "rxn_BV_gamma_mod_01", "MHC_kfunc",
+    "OCV_LCO", "OCV_LiC6", "OCV_NMC", "OCV_LiC6_with_NMC", "OCV_NMC_LGM50",
+    "OCV_LiC6_LGM50", "D_s_eff", "D_s_eff_isothermal", "rxn_rate",
+    "rxn_rate_isothermal", "D_eff", "D_eff_linear", "D_eff_linear_one_term",
+    "K_eff", "K_eff_isothermal", "thermodynamic_factor",
+    "thermodynamic_factor_linear", "kinetics", "ocv", "transport",
 ]
 
 # the JAX package's reference-name aliases, for what is ported
@@ -45,6 +60,7 @@ boundary_stop_conditions = Bounds
 options_simulation = SimOptions
 discretizations_per_section = Discretizations
 options_numerical = Numerics
+rxn_BV_gamma_mod = rxn_BV_gamma_mod_01
 solution = Solution
 Params = petlion
 run_model = simulate
@@ -54,6 +70,7 @@ model_output = Solution
 
 __all__ += [
     "boundary_stop_conditions", "options_simulation",
-    "discretizations_per_section", "options_numerical", "solution",
+    "discretizations_per_section", "options_numerical",
+    "rxn_BV_gamma_mod", "solution",
     "Params", "run_model", "run_model_cont", "options_model", "model_output",
 ]

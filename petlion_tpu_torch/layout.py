@@ -188,9 +188,13 @@ class StateLayout:
 
     def soc_from_state(self, y, th):
         """SOC estimate from the mean anode stoichiometry, (B,) from
-        (B, N_tot) states and (B, 1) θ."""
+        (B, N_tot) states and (B, 1) θ. Half cell: from the cathode's (the
+        foil has no state of charge)."""
         if self.half_cell:
-            raise NotImplementedError("anode='Li_metal' (half-cell)")
+            frac = (self.get(y, "c_s_avg", "p").mean(dim=-1)
+                    / th["c_max_p"][..., 0])
+            return ((frac - th["theta_min_p"][..., 0])
+                    / (th["theta_max_p"][..., 0] - th["theta_min_p"][..., 0]))
         frac = self.get(y, "c_s_avg", "n").mean(dim=-1) / th["c_max_n"][..., 0]
         return ((frac - th["theta_min_n"][..., 0])
                 / (th["theta_max_n"][..., 0] - th["theta_min_n"][..., 0]))

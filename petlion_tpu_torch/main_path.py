@@ -42,12 +42,30 @@ Two more paths drive the control inputs, on the default route:
   SOC_max=1.0)``; ``run_power`` and ``run_eta`` are the 600 s ``P=-10`` and
   60 s ``eta_p=0.05`` runs from SOC 0.5 on the same model.
 
+Path 7 is the JAX suite's SEI configuration (``bench_suite.py``
+``4b_sei_discharge_batched``) at its published width:
+
+* path 7, ``run_sei``: ``SEI_B`` = 256 NMC cells with SEI aging
+  (``petlion(NMC, aging="SEI")``, 322 states on the default mesh, a
+  92-state Newton core: j, Φ_e, Φ_s, film, SOH, j_s and I), float32 with
+  ``SEI_OPTS`` (the benchmark options with ``max_save`` 128, recording
+  ``t``, ``V`` and ``SOH``), a 1C discharge from SOC 1 (``I=-1``,
+  ``tf=3.9e3``), D_sp, D_sn, k_p and k_n perturbed ±5% per cell from a
+  seeded ``torch.Generator`` (cell 0 keeps the published values), on path
+  1's route or, with ``route=PATH2``, the full-kernel route;
+* ``run_sei_cycling``: the suite's ``4_sei_cycling``, one NMC+SEI cell
+  through ``simulate``/``simulate_cont``: a charge at ``I=1`` from SOC 0.3
+  to ``SOC_max=0.9`` (``V_max=4.25``), then three times a discharge at
+  ``I=-1`` to ``SOC_min=0.3`` (``V_min=2.8``) and a charge back, with the
+  suite's tolerances (abstol 5e-4, reltol 1e-3), recording ``t``, ``V`` and
+  ``SOH``.
+
 ``newton_matrices`` builds the Newton matrices of the main path that the
 kernels see, for the tests and ``chip_smoke.py`` to hold the kernels on real
 inputs.
 ``chip_smoke.py`` checks these programs; run as a script,
 
-    python -m petlion_tpu_torch.main_path [path1|path2|path3|path4|path5|path6 ...]
+    python -m petlion_tpu_torch.main_path [path1|...|path6|path7 ...]
 
 profiles each named path (path 1 and path 2 by default) on the card: one
 cold run, one warm run under ``torch.profiler`` (CPU and CUDA activities)
@@ -69,7 +87,7 @@ import time
 import numpy as np
 import torch
 
-from .chemistry import LCO
+from .chemistry import LCO, NMC
 from .ops import gj_kernel
 from .ops.plan import FULL_KERNEL_ROUTE, Route
 from .parallel.batch import batch_simulate
@@ -89,6 +107,9 @@ PATH1 = Route()
 PATH2 = FULL_KERNEL_ROUTE
 COLORED = Route(analytic=False)
 PATHS = {"path1": PATH1, "path2": PATH2}
+SEI_B = 256
+SEI_OPTS = dict(BENCH_OPTS, max_save=128, outputs=("t", "V", "SOH"))
+SEI_CYCLE_TOL = dict(abstol=5e-4, reltol=1e-3)
 KERNEL_SYMBOLS = {"gj_inverse": "gj_inverse_kernel",
                   "gj_blocks": "gj_blocks_kernel", "dchain": "dchain_kernel"}
 
@@ -201,6 +222,47 @@ def run_eta(p: Model):
     return _timed(lambda: simulate(p, 60.0, eta_p=0.05, SOC=0.5))
 
 
+def sei_model(device="cuda", dtype=torch.float32) -> Model:
+    """Path 7's NMC+SEI model with ``SEI_OPTS``."""
+    p = petlion(NMC, aging="SEI", device=device, dtype=dtype)
+    p.opts = p.opts.replace(**SEI_OPTS)
+    return p
+
+
+def sei_theta_batch(p: Model, seed: int, n_cells: int = SEI_B) -> dict:
+    """Path 7's swept θ: D_sp, D_sn, k_p, k_n of `p` ±5% per cell from a
+    seeded torch.Generator; cell 0 keeps the published values."""
+    gen = torch.Generator().manual_seed(seed)
+    tb = {}
+    for k in SWEPT_THETA:
+        x = 1 + 0.05 * torch.randn(n_cells, generator=gen, dtype=torch.float64)
+        x[0] = 1.0
+        tb[k] = (float(p.theta[k]) * x).numpy()
+    return tb
+
+
+def run_sei(p: Model, seed: int, route: Route = PATH1, n_cells: int = SEI_B):
+    """Path 7: one batched 1C discharge of NMC+SEI cells on `p`'s device:
+    (RunResultDev, wall seconds), the wall ending in a device
+    synchronisation."""
+    tb = sei_theta_batch(p, seed, n_cells)
+    return _timed(lambda: batch_simulate(p, TF, I=-1.0, SOC=1.0, theta_batch=tb,
+                                         route=route))
+
+
+def run_sei_cycling(p: Model, cycles: int = 3):
+    """The SEI cycling chain on one cell: (Solution, wall seconds)."""
+    kw = dict(outputs=("t", "V", "SOH"), **SEI_CYCLE_TOL)
+
+    def chain():
+        s = simulate(p, I=1, SOC=0.3, SOC_max=0.9, V_max=4.25, **kw)
+        for _ in range(cycles):
+            s = simulate_cont(s, p, I=-1, SOC_min=0.3, V_min=2.8)
+            s = simulate_cont(s, p, I=1, SOC_max=0.9, V_max=4.25)
+        return s
+    return _timed(chain)
+
+
 def warm_walls(p: Model, seed: int, route: Route = PATH1):
     """WARM_RUNS runs of one batch in this process: the last run's result,
     the walls, their median and their relative spread (max − min) / median."""
@@ -212,19 +274,20 @@ def warm_walls(p: Model, seed: int, route: Route = PATH1):
     return res, walls, med, (max(walls) - min(walls)) / med
 
 
-def newton_matrices(n_states: int = 8, seed: int = 0):
+def newton_matrices(n_states: int = 8, seed: int = 0, chemistry=LCO, **options):
     """Newton matrices of the main path (float64, CPU) at perturbed states
     with BDF coefficients c0 from 0.05 to 50, as the factorization sees
     them: (core, permuted, sizes, groups) — the Schur core after the group
     eliminations (n_states, 71, 71), the same permuted so that the nested
     levels lead, the level sizes, and the equilibrated particle and c_e
-    group blocks."""
+    group blocks. `chemistry` and `options` pick another model (path 7's:
+    ``chemistry=NMC, aging="SEI"``, a 92-state core)."""
     from .ops import structured as st
     from .ops.plan import get_plan
     from .physics.initial_guess import initial_guess
     from .solver import control, linsolve
     kw = dict(dtype=torch.float64, device="cpu")
-    p = petlion(LCO, **kw)
+    p = petlion(chemistry, **kw, **options)
     plan = get_plan(p.cfg, p.theta_floats(), FULL_KERNEL_ROUTE)
     L = p.cfg.layout
     rng = np.random.default_rng(seed)
@@ -240,14 +303,15 @@ def newton_matrices(n_states: int = 8, seed: int = 0):
     c0 = torch.as_tensor(np.geomspace(0.05, 50.0, n_states), **kw)
     data = dict(th, _c0=c0[:, None],
                 _const=torch.as_tensor(1e-3 * rng.standard_normal(y.shape)) - c0[:, None] * y)
+    data["_v"] = torch.full((n_states, 1), -1.0, **kw)
     spec = control.ControlSpec("I")
-    value = torch.full((n_states,), -1.0, **kw)
 
     def g(yy, d):
-        return control.full_residual(spec, value, 0.0, yy,
+        return control.full_residual(spec, d["_v"][:, 0], 0.0, yy,
                                      d["_c0"] * yy + d["_const"], d, p.cfg)
 
-    JS, last = plan.analytic.compressed(None, y, c0, th, g, data)
+    JS, last = (plan.analytic.compressed(None, y, c0, th, g, data)
+                if plan.analytic is not None else plan.colored.compressed(g, y, data))
     ds = plan.device_specs(y)
     _, D = st.eliminate_groups(JS, last, plan.colored, ds)
     groups = [linsolve._equilibrate(st._extract_A(JS, gt))[0] for gt in ds.groups]
@@ -264,6 +328,9 @@ def _device_us(evt):
 def _path_run(name: str, p: Model, seed: int):
     """One run of a named path: (steps, rejected attempts) per cell as
     numpy arrays, and the wall."""
+    if name == "path7":
+        res, wall = run_sei(p, seed)
+        return res.n_steps.cpu().numpy(), res.n_rejected.cpu().numpy(), wall
     if name in ("path3", "path6"):
         sol, wall = run_single(p) if name == "path3" else run_cccv(p)
         return (np.array([sum(r.n_steps for r in sol.results)]),
@@ -342,7 +409,9 @@ def main(names=("path1", "path2")):
         capture_output=True, text=True, timeout=60).stdout.strip()
     p32, p64 = model(), petlion(LCO)
     for name in names:
-        profile(p64 if name in ("path3", "path6") else p32, name, card)
+        p = (sei_model() if name == "path7"
+             else p64 if name in ("path3", "path6") else p32)
+        profile(p, name, card)
 
 
 if __name__ == "__main__":

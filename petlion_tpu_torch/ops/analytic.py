@@ -23,10 +23,11 @@ Batch-first: every value carries a leading cells axis; the write plan (which
 against the detected sparsity pattern, and the assembly is one scatter-add
 into the (B, n_colors, N) compressed layout.
 
-Scope: isothermal, no aging, Fickian finite-difference radial diffusion,
-full cell, and a D_s that does not depend on concentration. Anything else —
-and any pattern entry the closed forms do not cover — raises
-``Unsupported`` and the plan keeps the colored sweeps.
+Scope, as in the JAX package: isothermal, no aging, Fickian radial
+diffusion (finite differences or Chebyshev spectral), full cell. A D_s that
+depends on the surface concentration adds one column to each particle
+block. Anything else — and any pattern entry the closed forms do not cover —
+raises ``Unsupported`` and the plan keeps the colored sweeps.
 """
 
 from __future__ import annotations
@@ -35,7 +36,7 @@ import numpy as np
 import torch
 
 from ..constants import FARADAY as F, IDEAL_GAS as R
-from ..physics.residuals import ModelConfig, _fickian_rhs, active_material, calc_I1C
+from ..physics.residuals import ModelConfig, active_material, calc_I1C, radial_rhs
 from .jacobian import last_row_grad
 
 
@@ -43,7 +44,7 @@ class Unsupported(Exception):
     pass
 
 
-def _host_radial_A0_bj(n_r: int):
+def _host_radial_A0_bj(n_r: int, radial):
     """The radial operator's constant parts, rhs(c, j; Rp, D_s) =
     (D_s/Rp²)·A₀·c + (B̃/Rp)·j, from autograd at Rp = D_s = 1 on the CPU in
     float64."""
@@ -51,11 +52,11 @@ def _host_radial_A0_bj(n_r: int):
     one = torch.ones((1, 1), **kw)
 
     def f_c(c):
-        return _fickian_rhs(c[None], 0.0 * one, one, one, 1, n_r)[0]
+        return radial(c[None], 0.0 * one, one, one, 1, n_r)[0]
 
     def f_j(jv):
-        return _fickian_rhs(torch.zeros((1, n_r), **kw), jv[None], one, one, 1,
-                            n_r)[0]
+        return radial(torch.zeros((1, n_r), **kw), jv[None], one, one, 1,
+                      n_r)[0]
 
     jac = torch.autograd.functional.jacobian
     A0 = jac(f_c, torch.zeros(n_r, **kw)).numpy()
@@ -99,22 +100,19 @@ class AnalyticJacobian:
     def supports(cfg: ModelConfig) -> bool:
         num = cfg.numerics
         return (not num.temperature and num.aging is None
-                and num.solid_diffusion == "Fickian"
-                and num.Fickian_method == "finite_difference"
-                and not cfg.half_cell)
+                and num.solid_diffusion == "Fickian" and not cfg.half_cell)
 
     def __init__(self, cfg: ModelConfig, colored, theta_sample: dict):
         if not self.supports(cfg):
             raise Unsupported("config")
-        if _ds_depends_on_c(cfg, theta_sample):
-            raise Unsupported("D_s_eff depends on concentration")
         self.cfg = cfg
         N, L = cfg.N, cfg.layout
         P, S, Nn = N.p, N.s, N.n
         n_ce = P + S + Nn
         self.n = L.N_tot
-        self.A0_p, self.bj_p = _host_radial_A0_bj(N.r_p)
-        self.A0_n, self.bj_n = _host_radial_A0_bj(N.r_n)
+        self.A0_p, self.bj_p = _host_radial_A0_bj(N.r_p, radial_rhs(cfg.numerics))
+        self.A0_n, self.bj_n = _host_radial_A0_bj(N.r_n, radial_rhs(cfg.numerics))
+        self.ds_dep = _ds_depends_on_c(cfg, theta_sample)
 
         ce0 = L.sl("c_e").start
         cs0 = L.sl("c_s_avg").start
@@ -154,6 +152,10 @@ class AnalyticJacobian:
                                               (P, rp)))
         add("cs_j_n", rows_n, np.broadcast_to((j0 + P + np.arange(Nn))[:, None],
                                               (Nn, rn)))
+        if self.ds_dep:
+            # D_s(c_surf): the surface column of each particle block
+            add("cs_ds_p", rows_p, np.broadcast_to(surf_p[:, None], (P, rp)))
+            add("cs_ds_n", rows_n, np.broadcast_to(surf_n[:, None], (Nn, rn)))
 
         # j rows: diagonal, c_s surface, c_e, Φ_s, Φ_e
         jr = j0 + np.arange(P + Nn)
@@ -457,6 +459,25 @@ class AnalyticJacobian:
         vals["cs_blk_n"] = blk_n
         vals["cs_j_p"] = (c["bj_p"] / th["Rp_p"])[:, None, :].expand(B, P, rp)
         vals["cs_j_n"] = (c["bj_n"] / th["Rp_n"])[:, None, :].expand(B, Nn, rn)
+        if self.ds_dep:
+            # ∂rhs/∂c_surf through D_s: (rhs − B̃·j/Rp)/D_s · dD_s/dc_surf
+            c_star_p, c_star_n = q["c_star_p"], q["c_star_n"]
+            dDs_p = elementwise_derivatives(
+                lambda x: num.D_s_eff(x, c_star_n, T_p, T_n, th)[0], c_star_p)[1][0]
+            dDs_n = elementwise_derivatives(
+                lambda x: num.D_s_eff(c_star_p, x, T_p, T_n, th)[1], c_star_n)[1][0]
+            radial = radial_rhs(num)
+            L = cfg.layout
+            rhs_p = radial(L.get(y, "c_s_avg", "p"), j[:, :P], th["Rp_p"], D_s_p,
+                           P, rp).reshape(B, P, rp)
+            rhs_n = radial(L.get(y, "c_s_avg", "n"), j[:, P:], th["Rp_n"], D_s_n,
+                           Nn, rn).reshape(B, Nn, rn)
+            bjp = (c["bj_p"] / th["Rp_p"])[:, None, :]
+            bjn = (c["bj_n"] / th["Rp_n"])[:, None, :]
+            vals["cs_ds_p"] = ((rhs_p - bjp * j[:, :P, None]) / D_s_p[..., None]
+                               * dDs_p[..., None])
+            vals["cs_ds_n"] = ((rhs_n - bjn * j[:, P:, None]) / D_s_n[..., None]
+                               * dDs_n[..., None])
 
         # ---- j rows: elementwise kinetics
         dj_cs_p, dj_ce_p, _ = q["dj_p"]

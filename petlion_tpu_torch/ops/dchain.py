@@ -156,7 +156,7 @@ def dchain_cuda(D, sizes):
     with torch.cuda.device(D.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(D.data_ptr(), ptrs, csizes, len(sizes), B, n, stream)
-    check_launch(lib, "dchain", rc)
+    check_launch(lib, "dchain", rc, n)
     return outs
 
 

@@ -99,7 +99,7 @@ def gj_blocks_cuda(A):
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(A.data_ptr(), out.data_ptr(), M, n, stream)
-    check_launch(lib, "gj_blocks", rc)
+    check_launch(lib, "gj_blocks", rc, n)
     return out
 
 

@@ -44,13 +44,16 @@ MAX_SMEM_BYTES = 232448
 # largest n the kernel's register tiles take (csrc/gj_inverse.cu max_n)
 MAX_N = {torch.float32: 176, torch.float64: 128}
 
-# launches of each kernel; reset with reset_launch_counts()
+# launches of each kernel, and of each kernel by matrix size n; reset with
+# reset_launch_counts()
 LAUNCHES = {name: 0 for name in KERNEL_SOURCES}
+LAUNCHES_BY_N = {name: {} for name in KERNEL_SOURCES}
 
 
 def reset_launch_counts():
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        LAUNCHES_BY_N[k].clear()
 
 
 # ---------------------------------------------------------------------------
@@ -219,12 +222,14 @@ def library(name: str, launchers: dict):
     return _libs[name]
 
 
-def check_launch(lib, name: str, rc: int):
-    """Raise if a launcher returned a CUDA error; count the launch if not."""
+def check_launch(lib, name: str, rc: int, n: int):
+    """Raise if a launcher returned a CUDA error; count the launch, by the
+    matrix size `n`, if not."""
     if rc != 0:
         msg = getattr(lib, f"{name}_error_string")(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({rc})")
     LAUNCHES[name] += 1
+    LAUNCHES_BY_N[name][n] = LAUNCHES_BY_N[name].get(n, 0) + 1
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -258,7 +263,7 @@ def gj_inverse_cuda(A):
     with torch.cuda.device(A.device):
         stream = torch.cuda.current_stream().cuda_stream
         rc = fn(A.data_ptr(), out.data_ptr(), B, n, stream)
-    check_launch(lib, "gj_inverse", rc)
+    check_launch(lib, "gj_inverse", rc, n)
     return out
 
 

@@ -190,6 +190,10 @@ def _detect_pattern(cfg: ModelConfig, theta: dict) -> np.ndarray:
         y *= (1.0 + 0.05 * r.standard_normal(y.shape))
         y[L.sl("Phi_e")] = 0.01 * r.standard_normal(y[L.sl("Phi_e")].shape)
         y[L.sl("j")] = 1e-6 * r.standard_normal(y[L.sl("j")].shape)
+        if "j_s" in L:
+            y[L.sl("j_s")] = -1e-7 * r.random(y[L.sl("j_s")].shape)
+        if "film" in L:
+            y[L.sl("film")] = 1e-9 * r.random(y[L.sl("film")].shape)
         y[L.sl("I").start] = i_val
         yp = 1e-3 * r.standard_normal(y.shape)
         return torch.as_tensor(y), torch.as_tensor(yp)

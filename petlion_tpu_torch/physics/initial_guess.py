@@ -33,6 +33,13 @@ def initial_guess(SOC, th, cfg: ModelConfig):
     y[:, L.sl("c_e")] = th["c_e0"]
     y[:, L.sl("c_s_avg", "p")] = c_s_p
     y[:, L.sl("c_s_avg", "n")] = c_s_n
+    if num.aging == "SEI":
+        y[:, L.sl("SOH")] = 1.0
+        # film and j_s stay 0
+    if num.aging == "stress":
+        y[:, L.sl("eps_s", "p")] = 1.0 - (th["eps_fp"] + th["eps_p"])
+        y[:, L.sl("eps_s", "n")] = 1.0 - (th["eps_fn"] + th["eps_n"])
+    # Q stays 0 (polynomial); a half cell's anode slices are empty
     y[:, L.sl("Phi_s", "p")] = U_p
     y[:, L.sl("Phi_s", "n")] = U_n
     # j, Φ_e and I stay 0 — I is overwritten by the run's initial current

@@ -1,7 +1,7 @@
 """Open-circuit-voltage curves U(θ) and their temperature sensitivities
-(counterpart of the JAX package's ``physics/ocv.py``; the curves of the LCO/LiC6
-cell). Every curve returns ``(U, dU/dT)``; the (T − T_ref)·dU/dT correction
-is skipped exactly when T == T_ref.
+(counterpart of the JAX package's ``physics/ocv.py``: the curves of the LCO,
+NMC, LG M50 and lithium-metal cells). Every curve returns ``(U, dU/dT)``;
+the (T − T_ref)·dU/dT correction is skipped exactly when T == T_ref.
 """
 
 from __future__ import annotations
@@ -54,3 +54,43 @@ def OCV_LiC6(theta_n, T, th=None):
            - 385821.1607 * x**7 + 165705.8597 * x**8)
     dUdT = 0.001 * num / den
     return _temp_correct(U, dUdT, T), dUdT
+
+
+def OCV_NMC(theta_p, T, th=None):
+    """NMC cathode OCV."""
+    x = theta_p
+    U = -10.72 * x**4 + 23.88 * x**3 - 16.77 * x**2 + 2.595 * x + 4.563
+    return U, torch.zeros_like(U)
+
+
+def OCV_LiC6_with_NMC(theta_n, T, th=None):
+    """Graphite OCV paired with NMC."""
+    x = theta_n
+    U = (0.1493 + 0.8493 * torch.exp(-61.79 * x) + 0.3824 * torch.exp(-665.8 * x)
+         - torch.exp(39.42 * x - 41.92)
+         - 0.03131 * torch.arctan(25.59 * x - 4.099)
+         - 0.009434 * torch.arctan(32.49 * x - 15.74))
+    return U, torch.zeros_like(U)
+
+
+def OCV_NMC_LGM50(theta_p, T, th=None):
+    """LG M50 NMC811 cathode OCV."""
+    x = theta_p
+    U = (-0.8090 * x + 4.4875 - 0.0428 * torch.tanh(18.5138 * (x - 0.5542))
+         - 17.7326 * torch.tanh(15.7890 * (x - 0.3117))
+         + 17.5842 * torch.tanh(15.9308 * (x - 0.3120)))
+    return U, torch.zeros_like(U)
+
+
+def OCV_LiC6_LGM50(theta_n, T, th=None):
+    """LG M50 graphite anode OCV (also the lithium-metal anode's curve)."""
+    x = theta_n
+    U = (1.9793 * torch.exp(-39.3631 * x) + 0.15561
+         - 0.0909 * torch.tanh(29.8538 * (x - 0.1234))
+         - 0.04478 * torch.tanh(14.9159 * (x - 0.2769))
+         - 0.0205 * torch.tanh(30.4444 * (x - 0.6103))
+         - 0.09259 * torch.tanh(17.08 * (x - 1.0)))
+    return U, torch.zeros_like(U)
+
+
+OCV_Li_metal = OCV_LiC6_LGM50

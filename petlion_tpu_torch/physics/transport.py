@@ -1,5 +1,5 @@
 """Transport-property closures (counterpart of
-the JAX package's ``physics/transport.py``; the functions the LCO cell uses).
+the JAX package's ``physics/transport.py``).
 
 Each function takes section-wise ``(B, n)`` tensors plus θ (``(B, 1)``
 tensors). The Arrhenius factor is skipped exactly when T == T_ref, so
@@ -47,6 +47,41 @@ def D_eff_linear(c_e_p, c_e_s, c_e_n, T_p, T_s, T_n, th):
     )
 
 
+def D_eff_linear_one_term(c_e_p, c_e_s, c_e_n, T_p, T_s, T_n, th):
+    De = th["D_e"]
+    return (
+        De * th["eps_p"] ** th["brugg_p"] * torch.ones_like(c_e_p),
+        De * th["eps_s"] ** th["brugg_s"] * torch.ones_like(c_e_s),
+        De * th["eps_n"] ** th["brugg_n"] * torch.ones_like(c_e_n),
+    )
+
+
+def _D_eff_scalar(c_e, T):
+    # empirical correlation
+    return 1e-4 * 10.0 ** (-4.43 - 54.0 / (T - 229.0 - 5e-3 * c_e) - 0.22e-3 * c_e)
+
+
+def D_eff(c_e_p, c_e_s, c_e_n, T_p, T_s, T_n, th):
+    return (
+        th["eps_p"] ** th["brugg_p"] * _D_eff_scalar(c_e_p, T_p),
+        th["eps_s"] ** th["brugg_s"] * _D_eff_scalar(c_e_s, T_s),
+        th["eps_n"] ** th["brugg_n"] * _D_eff_scalar(c_e_n, T_n),
+    )
+
+
+def _D_eff_LGM50_scalar(c_e, T, th):
+    x = c_e / 1000.0
+    return th["D_e"] * (x * x - 4.516715942688196 * x + 5.5287696156470325)
+
+
+def D_eff_LGM50(c_e_p, c_e_s, c_e_n, T_p, T_s, T_n, th):
+    return (
+        th["eps_p"] ** th["brugg_p"] * _D_eff_LGM50_scalar(c_e_p, T_p, th),
+        th["eps_s"] ** th["brugg_s"] * _D_eff_LGM50_scalar(c_e_s, T_s, th),
+        th["eps_n"] ** th["brugg_n"] * _D_eff_LGM50_scalar(c_e_n, T_n, th),
+    )
+
+
 def _K_eff_scalar(c_e, T):
     return 1e-4 * c_e * (
         (-10.5 + 0.668e-3 * c_e + 0.494e-6 * c_e**2)
@@ -63,6 +98,41 @@ def K_eff(c_e_p, c_e_s, c_e_n, T_p, T_s, T_n, th):
     )
 
 
+def _K_eff_iso_scalar(c_e):
+    return (4.1253e-2 + 5.007e-4 * c_e - 4.7212e-7 * c_e**2
+            + 1.5094e-10 * c_e**3 - 1.6018e-14 * c_e**4)
+
+
+def K_eff_isothermal(c_e_p, c_e_s, c_e_n, T_p, T_s, T_n, th):
+    return (
+        th["eps_p"] ** th["brugg_p"] * _K_eff_iso_scalar(c_e_p),
+        th["eps_s"] ** th["brugg_s"] * _K_eff_iso_scalar(c_e_s),
+        th["eps_n"] ** th["brugg_n"] * _K_eff_iso_scalar(c_e_n),
+    )
+
+
+def _K_eff_LGM50_scalar(c_e):
+    x = c_e / 1000.0
+    return 0.1297 * x**3 - 2.51 * x**1.5 + 3.329 * x
+
+
+def K_eff_LGM50(c_e_p, c_e_s, c_e_n, T_p, T_s, T_n, th):
+    return (
+        th["eps_p"] ** th["brugg_p"] * _K_eff_LGM50_scalar(c_e_p),
+        th["eps_s"] ** th["brugg_s"] * _K_eff_LGM50_scalar(c_e_s),
+        th["eps_n"] ** th["brugg_n"] * _K_eff_LGM50_scalar(c_e_n),
+    )
+
+
 def thermodynamic_factor_linear(c_e_p, c_e_s, c_e_n, T_p, T_s, T_n, th):
     return (torch.ones_like(c_e_p), torch.ones_like(c_e_s),
             torch.ones_like(c_e_n))
+
+
+def _tf_scalar(c_e, T):
+    x = c_e / 1000.0
+    return 0.601 - 0.24 * torch.sqrt(x) + 0.982 * (1 - 0.0052 * (T - 293.0)) * x**1.5
+
+
+def thermodynamic_factor(c_e_p, c_e_s, c_e_n, T_p, T_s, T_n, th):
+    return (_tf_scalar(c_e_p, T_p), _tf_scalar(c_e_s, T_s), _tf_scalar(c_e_n, T_n))

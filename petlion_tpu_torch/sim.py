@@ -517,12 +517,17 @@ def _state(y, p: Model):
 
 def calc_OCV(y, p: Model):
     """Open-circuit voltages (U_p, U_n) of every cathode and anode CV at the
-    particle-surface stoichiometries of state `y` (N_tot,) or (B, N_tot)."""
+    particle-surface stoichiometries of state `y` (N_tot,) or (B, N_tot).
+    Half cell: U_n is the lithium foil's 0 V."""
     L, num = p.cfg.layout, p.numerics
     y, th = _state(y, p)
     T_p = torch.full((p.N.p,), float(th["T0"]), dtype=y.dtype, device=y.device)
-    T_n = torch.full((p.N.n,), float(th["T0"]), dtype=y.dtype, device=y.device)
     U_p, _ = num.OCV_p(L.c_s_surf(y, "p") / th["c_max_p"], T_p, th)
+    if p.cfg.half_cell:
+        # the lithium foil's 0 V against Li/Li⁺
+        return U_p, torch.zeros(y.shape[:-1] + (1,), dtype=y.dtype,
+                                device=y.device)
+    T_n = torch.full((p.N.n,), float(th["T0"]), dtype=y.dtype, device=y.device)
     U_n, _ = num.OCV_n(L.c_s_surf(y, "n") / th["c_max_n"], T_n, th)
     return U_p, U_n
 

@@ -103,11 +103,15 @@ def check_stop(t, y, yp, soc, prev: BoundsPrev, flag, bounds: dict, th,
     # with temperature=True)
     T_mean = prev.T
 
-    c_max_n = th["c_max_n"][:, 0]
-    c_s_n_max = torch.amax(L.c_s_surf(y, "n"), dim=-1)
-    state = fire(state,
-                 (I > 0) & (c_s_n_max - bounds["c_s_n_max"] * c_max_n > eps),
-                 prev.c_s_n, bounds["c_s_n_max"] * c_max_n, c_s_n_max, 6)
+    # anode surface concentration; a lithium foil has no saturation
+    # concentration, so a half cell has no such bound
+    c_s_n_max = prev.c_s_n
+    if not L.half_cell:
+        c_max_n = th["c_max_n"][:, 0]
+        c_s_n_max = torch.amax(L.c_s_surf(y, "n"), dim=-1)
+        state = fire(state,
+                     (I > 0) & (c_s_n_max - bounds["c_s_n_max"] * c_max_n > eps),
+                     prev.c_s_n, bounds["c_s_n_max"] * c_max_n, c_s_n_max, 6)
 
     c_e_min = torch.amin(L.get(y, "c_e"), dim=-1)
     state = fire(state, (bounds["c_e_min"] - c_e_min > eps),
@@ -117,6 +121,13 @@ def check_stop(t, y, yp, soc, prev: BoundsPrev, flag, bounds: dict, th,
     d_eta = L.eta_plating(yp)
     state = fire(state, (bounds["eta_plating_min"] - eta_pl > eps) & (d_eta < 0),
                  prev.eta_plating, bounds["eta_plating_min"], eta_pl, 11)
+
+    # film growth rate
+    dfilm = prev.dfilm
+    if cfg.numerics.aging == "SEI":
+        dfilm = torch.amax(L.get(yp, "film"), dim=-1)
+        state = fire(state, dfilm - bounds["dfilm_max"] > eps,
+                     prev.dfilm, bounds["dfilm_max"], dfilm, 10)
 
     stop_g = prev.stop_g
     if stop_fn is not None:
@@ -132,7 +143,7 @@ def check_stop(t, y, yp, soc, prev: BoundsPrev, flag, bounds: dict, th,
 
     new_prev = BoundsPrev(
         t_frac=state["t_frac"], V=V, SOC=soc, T=T_mean, c_s_n=c_s_n_max,
-        I=I, eta_plating=eta_pl, c_e_min=c_e_min, dfilm=prev.dfilm,
+        I=I, eta_plating=eta_pl, c_e_min=c_e_min, dfilm=dfilm,
         stop_g=stop_g)
     return new_prev, state["flag"]
 

@@ -358,6 +358,7 @@ def _finish(rs: RunnerState, init, y0, bufs, bounds, th, cfg, opts, vec_outs,
                 + 0.5 * (t - rs.t_prev) * (L.I(y) + L.I(rs.y_prev)) / 3600.0)
 
     c_max_n = th["c_max_n"][:, 0]
+    sei = cfg.numerics.aging == "SEI"
 
     def g_at(t):
         """Signed margin g > 0 once the firing bound is exceeded, per cell's
@@ -368,18 +369,22 @@ def _finish(rs: RunnerState, init, y0, bufs, bounds, th, cfg, opts, vec_outs,
         one = torch.ones_like(t)
         g_stop = (one if stop_margin is None
                   else control.cell_values(stop_margin(t, y, yp, soc, th), y))
+        g_c_s_n = (one if L.half_cell else
+                   torch.amax(L.c_s_surf(y, "n"), dim=-1)
+                   - bounds["c_s_n_max"] * c_max_n)
+        g_dfilm = (torch.amax(L.get(yp, "film"), dim=-1) - bounds["dfilm_max"]
+                   if sei else one)
         g = torch.stack([
             bounds["V_min"] - L.V(y),                                   # 1
             L.V(y) - bounds["V_max"],                                   # 2
             bounds["SOC_min"] - soc,                                    # 3
             soc - bounds["SOC_max"],                                    # 4
             one,                                                        # 5
-            torch.amax(L.c_s_surf(y, "n"), dim=-1)
-            - bounds["c_s_n_max"] * c_max_n,                            # 6
+            g_c_s_n,                                                    # 6
             L.I(y) - bounds["I_max"],                                   # 7
             bounds["I_min"] - L.I(y),                                   # 8
             bounds["c_e_min"] - torch.amin(L.get(y, "c_e"), dim=-1),    # 9
-            one,                                                        # 10
+            g_dfilm,                                                    # 10
             bounds["eta_plating_min"] - L.eta_plating(y),               # 11
             g_stop,                                                     # 12
         ], dim=-1)

@@ -186,9 +186,12 @@ def test_consistent_init_with_analytic_block_matches_colored():
 
 
 def test_unsupported_configs_fall_back_to_colored():
-    """No analytic assembly when the route asks for the sweeps, when D_s
-    depends on concentration, or for a config outside its scope; the
-    colored plan still factors."""
+    """No analytic assembly when the route asks for the sweeps or for a
+    config outside JAX's scope (thermal, aging, the particle
+    approximations, the half cell); the colored plan still factors. The
+    spectral radial scheme is inside it, and a D_s that depends on the
+    surface concentration gets its column of each particle block: the
+    assembly equals the colored sweeps at 1e-12 of each row's scale."""
     q = ptt.petlion(ptt.LCO, device="cpu", dtype=torch.float64)
     assert get_plan(q.cfg, q.theta_floats(), Route(analytic=False)).analytic is None
 
@@ -197,13 +200,22 @@ def test_unsupported_configs_fall_back_to_colored():
 
     cfg = ptt.ModelConfig.build(q.N, dataclasses.replace(q.numerics, D_s_eff=D_s_eff))
     plan = get_plan(cfg, q.theta_floats(), Route())
-    assert plan.analytic is None
-    with pytest.raises(analytic.Unsupported):
-        analytic.AnalyticJacobian(cfg, plan.colored, q.theta_floats())
-    for kw in (dict(temperature=True), dict(aging="SEI"),
+    assert plan.analytic is not None and plan.analytic.ds_dep
+    _, theta, _, th, y, c0, const = _setup({})
+    g, data = _torch_g(dataclasses.replace(q, cfg=cfg), th, c0, const,
+                       np.array([0.8, -1.0]))
+    yt = torch.as_tensor(y)
+    JS_a, _ = plan.analytic.compressed(3.3, yt, torch.as_tensor(c0), th, g, data)
+    JS_c, _ = plan.colored.compressed(g, yt, data)
+    for i in range(B):
+        _assert_rows_close(_dense(JS_a[i].numpy(), plan.colored),
+                           _dense(JS_c[i].numpy(), plan.colored), 1e-12)
+    for kw in (dict(temperature=True), dict(aging="SEI"), dict(aging="stress"),
                dict(solid_diffusion="quadratic"), dict(anode="Li_metal")):
         other = ptt.ModelConfig.build(q.N, ptt.Numerics(**kw))
         assert not analytic.AnalyticJacobian.supports(other), kw
+    spectral = ptt.ModelConfig.build(q.N, ptt.Numerics(Fickian_method="spectral"))
+    assert analytic.AnalyticJacobian.supports(spectral)
 
 
 def test_route_reads_the_jax_environment_variables():

@@ -126,3 +126,32 @@ def test_gitt_on_card_matches_cpu():
                                    rtol=1e-9, atol=1e-9)
     yc = c.y_final.numpy()
     assert np.max(np.abs(g.y_final.cpu().numpy() - yc) / (1 + np.abs(yc))) < 1e-9
+
+
+@pytest.mark.parametrize("chem, kw, I, soc, core", [
+    ("NMC", dict(aging="SEI"), 1.0, 0.3, 92),
+    ("LCO", dict(anode="Li_metal"), -1.0, 1.0, 41)], ids=["nmc_sei_charge", "half_cell"])
+def test_variant_on_card_matches_cpu(chem, kw, I, soc, core):
+    """NMC with SEI aging (charging, so the side reaction runs) and the
+    lithium-foil half cell, 600 s at 1C in float64 at B = 2: the card's run
+    (K1 at the 92- and 41-state cores) equals the CPU's to 1e-9 on t, V,
+    SOH and the final state, with the same flags and step counts."""
+    _need_card()
+    outs = ("t", "V", "SOH") if "aging" in kw else ("t", "V")
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        p = ptt.petlion(getattr(ptt, chem), device=dev, dtype=torch.float64, **kw)
+        gk.reset_launch_counts()
+        runs[dev] = ptt.batch_simulate(p, 600.0, I=I, SOC=soc, outputs=outs,
+                                       theta_batch={"D_sp": np.array([1.0, 1.04])
+                                                    * float(p.theta["D_sp"])})
+        if dev == "cuda":
+            assert gk.LAUNCHES_BY_N["gj_inverse"].get(core, 0) > 0
+    c, g = runs["cpu"], runs["cuda"]
+    assert g.flag.tolist() == c.flag.tolist()
+    assert g.n_steps.tolist() == c.n_steps.tolist()
+    for k in outs:
+        np.testing.assert_allclose(g.bufs[k].cpu().numpy(), c.bufs[k].numpy(),
+                                   rtol=1e-9, atol=1e-9 * float(c.bufs[k].abs().max()))
+    yg, yc = g.y_final.cpu().numpy(), c.y_final.numpy()
+    assert np.max(np.abs(yg - yc) / (1 + np.abs(yc))) < 1e-9

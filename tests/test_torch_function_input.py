@@ -17,6 +17,7 @@ import petlion_tpu_torch as ptt
 from petlion_tpu.parallel.batch import batch_simulate as jax_batch
 from petlion_tpu_torch.solver import run
 from test_torch_control import close_runs
+from torch_shared import shared
 
 torch.set_num_threads(1)
 
@@ -40,13 +41,14 @@ WAVE_KW = dict(SOC=1.0, theta_batch=WAVE, outputs=("t", "V", "I", "SOC"), max_sa
 
 
 @pytest.fixture(scope="module")
-def waves(models):
+def waves(models, request):
     """The two function inputs as one batch of two cells in each package
-    (600 s from SOC 1), and the port's constant current I = −1 alone."""
+    (600 s from SOC 1; the JAX run computed once per session, see
+    torch_shared.py), and the port's constant current I = −1 alone."""
     pj, p = models
-    ref = jax_batch(pj, 600.0, **WAVE_KW, I=lambda t, y, yp, th: -(
-        th["a_const"] + th["a_cos"] * jnp.cos(2 * jnp.pi * t / 600)))
-    ref = jax.tree_util.tree_map(np.asarray, ref)
+    ref = shared(request, "function_input_waves", lambda: jax.tree_util.tree_map(
+        np.asarray, jax_batch(pj, 600.0, **WAVE_KW, I=lambda t, y, yp, th: -(
+            th["a_const"] + th["a_cos"] * jnp.cos(2 * jnp.pi * t / 600)))))
     run.reset_trip_counts()
     got = ptt.batch_simulate(p, 600.0, **WAVE_KW, I=lambda t, y, yp, th: -(
         th["a_const"][:, 0] + th["a_cos"][:, 0] * torch.cos(2 * torch.pi * t / 600)))

@@ -13,6 +13,7 @@ import torch
 
 import petlion_tpu as pt
 import petlion_tpu_torch as ptt
+from torch_shared import shared
 
 torch.set_num_threads(1)
 
@@ -26,10 +27,12 @@ def models():
 
 
 @pytest.fixture(scope="module")
-def runs(models):
-    """A 600 s 1C discharge in both packages."""
+def runs(models, request):
+    """A 600 s 1C discharge in both packages (the JAX run computed once per
+    session, see torch_shared.py)."""
     pj, p = models
-    return pt.simulate(pj, 600.0, **KW), ptt.simulate(p, 600.0, **KW)
+    return (shared(request, "simulate_600s", lambda: pt.simulate(pj, 600.0, **KW)),
+            ptt.simulate(p, 600.0, **KW))
 
 
 def _close_runs(sj, st):

@@ -13,6 +13,7 @@ import jax
 import petlion_tpu as pt
 import petlion_tpu_torch as ptt
 from petlion_tpu.parallel.batch import batch_simulate as jax_batch
+from torch_shared import shared
 
 torch.set_num_threads(1)
 
@@ -35,10 +36,12 @@ def _landed(t, n_saved, stops):
 
 
 @pytest.fixture(scope="module")
-def jax64():
-    res = jax_batch(pt.petlion(pt.LCO), 600.0, theta_batch=THETA, tstops=TSTOPS,
-                    tdiscon=TDISCON, **KW)
-    return jax.tree_util.tree_map(np.asarray, res)
+def jax64(request):
+    """The JAX batch with per-cell stops, computed once per session (see
+    torch_shared.py)."""
+    return shared(request, "tstops_jax64", lambda: jax.tree_util.tree_map(
+        np.asarray, jax_batch(pt.petlion(pt.LCO), 600.0, theta_batch=THETA,
+                              tstops=TSTOPS, tdiscon=TDISCON, **KW)))
 
 
 def test_model_from_numpy_keeps_opts():

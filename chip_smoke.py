@@ -54,9 +54,10 @@ Phases, each of which must pass (any failure exits non-zero and prints no
    Each path is driven with the launch counts set to 0 just before and read
    just after. Every cell must exit with flag 0, 1 or 3, each kernel of the
    path must have been launched, and cell 0 must land within 5 s and 8e-3 V
-   of the float64 oracle (tests/data/oracle_lco_1c.npz). Then three warm
-   runs of one batch per path: their median wall gives discharges/s, their
-   spread the timing noise within one process. The colored-sweep route
+   of the float64 oracle (tests/data/oracle_lco_1c.npz). Then a warm run
+   of one batch per path (EARLY_WARM runs, one, as on paths 3-7: the
+   script's time limit; `python -m petlion_tpu_torch.main_path` takes three)
+   gives discharges/s. The colored-sweep route
    (PETLION_JACA=0) is driven once at 64 cells under the same checks.
 5. simulate (path 3, `main_path.run_single`): the golden single-cell flow
    on the card in float64 on the default route (K1 for the 71x71 core):
@@ -66,14 +67,14 @@ Phases, each of which must pass (any failure exits non-zero and prints no
    `sol(t)` must go through the native C++ spline; the solution is saved,
    loaded and resumed; the float32 discharge (abstol 1e-3) must stay within
    5 mV of the float64 trace, each read through its Solution's
-   interpolation. K1 must be launched in the phase; three warm float64
-   discharges give the single-cell wall.
+   interpolation. K1 must be launched in the phase; a warm float64
+   discharge gives the single-cell wall.
 6. tstops (path 4, `main_path.run_tstops`): path 1's 1024 cells in float32
    with max_save 128, three stop times per cell from a numpy seed in
    [200, 3400] s and a shared discontinuity at 1800 s: every cell must exit
    with flag 3 and record a time within 1e-2 s of each of its stops and of
    1800 − reltol/2, cell 0 within 5 s and 8e-3 V of the oracle; steps and
-   attempts per cell are printed beside path 1's; three warm runs.
+   attempts per cell are printed beside path 1's; a warm run.
 
 7. gitt (path 5, `main_path.run_gitt`): 1024 LCO cells in float32 on the
    default route, each discharged at 1C by a batch-first function input
@@ -83,7 +84,7 @@ Phases, each of which must pass (any failure exits non-zero and prints no
    record a time within 1e-2 s of its pulse end, carry |I + 1| < 1e-3
    before it (up to 0.01 s) and |I| < 1e-3 after it (from 0.5 s), and end
    within 1 s of 900 s; K1 must be launched, and the trips that ran a
-   re-initialization are printed; three warm runs give discharges/s.
+   re-initialization are printed; a warm run gives discharges/s.
 8. cccv (path 6, `main_path.run_cccv`, `run_power`, `run_eta`): one cell
    in float64 through `simulate`, 2C from SOC 0 to V_max 4.1 V ("Above max.
    voltage"), then V = "hold" until I_min 0.05C ("Below min. C-rate" with
@@ -109,8 +110,8 @@ Phases, each of which must pass (any failure exits non-zero and prints no
    two routes agree in V within 1e-4 V on the saved points where they step
    in lockstep and at the exit, and in exit time within 1e-4 (relative);
    cell 0 lies within 2 mV of the same cell in float64 on the card (read
-   through that run's interpolation, up to 100 s before the exit); three
-   warm runs give discharges/s, steps and attempts per cell.
+   through that run's interpolation, up to 100 s before the exit); a warm
+   run gives discharges/s, steps and attempts per cell.
 11. sei_cycling (`main_path.run_sei_cycling`): the JAX suite's
    4_sei_cycling on one cell in float32 and in float64 — the exit sequence
    "Above max. SOC", then "Below min. SOC" / "Above max. SOC" three times,
@@ -138,6 +139,7 @@ import sys
 import time
 import traceback
 
+T_START = time.time()
 HERE = os.path.dirname(os.path.abspath(__file__))
 ORACLE = os.path.join(HERE, "tests", "data", "oracle_lco_1c.npz")
 
@@ -149,6 +151,9 @@ PEAK_FP32_FLOP_PER_S = 67e12
 # cycles, at least 60 ms at the H100's 1.98 GHz boost clock
 SPIN_CYCLES = 120_000_000
 ROTATING = 4        # input buffers rotated in the K1 and K3 timings (82 MB)
+# warm runs of paths 1-7 (one each, to keep the script inside its time
+# limit; paths 8 and 9 take three, and main_path.py profiles three a path)
+EARLY_WARM = 1
 K2_ROTATING = 16    # and in K2's (60-66 MB at either main-path shape)
 
 
@@ -430,9 +435,11 @@ def phase_k2(groups):
         check(e_64 <= 1e-10, f"K2 float64 disagrees on real blocks: {e_64}")
 
     shapes = []
-    for M, n in ((10240, 10), (1024, 30)):
-        bufs = [_equilibrated_inputs(M, n, torch.float32, seed=3 + i)
-                for i in range(K2_ROTATING)]
+    # path 2's shapes, then path 7's (256 cells); at least 60 MB of rotating
+    # inputs, beyond the 50 MB L2
+    for M, n in ((10240, 10), (1024, 30), (2560, 10), (256, 30)):
+        rot = max(K2_ROTATING, -(-60_000_000 // (M * n * n * 4)))
+        bufs = [_equilibrated_inputs(M, n, torch.float32, seed=3 + i) for i in range(rot)]
         ms, host_us = device_ms(kb.gj_blocks_cuda, bufs, reps=200)
         b2b_ms = cuda_time_ms(lambda: kb.gj_blocks_cuda(bufs[0]), reps=100)
         plain_ms, _ = device_ms(kb.gj_blocks_plain, bufs, reps=8, spin=False)
@@ -443,8 +450,8 @@ def phase_k2(groups):
         library_ms, lib_host_us = device_ms(inv_ex, bufs, reps=20, spin=lib_spin)
         n_bytes = 2 * M * n * n * 4
         bound_ms, by = _bound(n_bytes, 2 * n ** 3 * M)
-        print(f"K2 timing ({M}, {n}, {n}) f32, {K2_ROTATING} rotating inputs "
-              f"({K2_ROTATING * n_bytes / 2e6:.1f} MB): kernel {ms:.4f} ms (back to back "
+        print(f"K2 timing ({M}, {n}, {n}) f32, {rot} rotating inputs "
+              f"({rot * n_bytes / 2e6:.1f} MB): kernel {ms:.4f} ms (back to back "
               f"on one input, no spin: {b2b_ms:.4f} ms), plain {plain_ms:.4f} ms, "
               f"torch.linalg.inv_ex {library_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}: "
               f"{n_bytes / 1e6:.1f} MB; {bound_ms / ms:.1%} of it reached); host "
@@ -470,12 +477,13 @@ def _dchain_flops(n, sizes):
     return f + 2 * m ** 3
 
 
-def phase_k3(Dp, sizes):
+def phase_k3(Dp, sizes, sei=None):
+    """K3 against its plain version and mirror (see the module docstring),
+    timed at path 2's shape and, with `sei` = (permuted cores, sizes), at
+    path 7's (256, 92, 92)."""
     import numpy as np
     import torch
     from petlion_tpu_torch.ops import dchain as kd
-    n = Dp.shape[-1]
-    out_elems = sum(a * b for a, b in kd.out_shapes(n, sizes))
     err_rec = None
     for B in (1024, 5):
         reps = -(-B // Dp.shape[0])
@@ -521,19 +529,30 @@ def phase_k3(Dp, sizes):
               f"scale {worst:.3e} (tol {tol:g})")
         check(worst <= tol, f"K3 disagrees with plain at n={m} sizes {lv} {dtype}: {worst}")
 
-    bufs = [Dp.to("cuda").float().repeat(128, 1, 1).contiguous() for _ in range(ROTATING)]
-    ms, host_us = device_ms(lambda D: kd.dchain_cuda(D, sizes), bufs, reps=200)
-    plain_ms, _ = device_ms(lambda D: kd.dchain_plain(D, sizes), bufs, reps=8, spin=False)
-    B = bufs[0].shape[0]
-    bound_ms, by = _bound((n * n + out_elems) * 4 * B, _dchain_flops(n, sizes) * B)
-    print(f"K3 timing ({B}, {n}, {n}) sizes {sizes} f32, {ROTATING} rotating inputs: "
-          f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, no single PyTorch call computes "
-          f"the chain, bound {bound_ms:.4f} ms ({by}: "
-          f"{(n * n + out_elems) * 4 * B / 1e6:.1f} MB, "
-          f"{_dchain_flops(n, sizes) * B / 1e9:.3f} GFLOP; {bound_ms / ms:.1%} of it reached); "
-          f"host {host_us:.1f} us per dchain_cuda call")
-    return dict(max_abs_err=err_rec, ms=ms, plain_ms=plain_ms, library_ms=None,
-                bound_ms=bound_ms, bound_by=by)
+    shapes = []
+    for D, lv, B, rot in ((Dp, sizes, 1024, ROTATING),) + (
+            ((sei[0], sei[1], 256, 2 * ROTATING),) if sei is not None else ()):
+        m = D.shape[-1]
+        oe = sum(a * b for a, b in kd.out_shapes(m, lv))
+        bufs = [D.to("cuda").float().repeat(-(-B // D.shape[0]), 1, 1)[:B].contiguous()
+                for _ in range(rot)]
+        check(all(torch.isfinite(o).all() for o in kd.dchain_cuda(bufs[0], lv)),
+              f"K3 at ({B}, {m}): non-finite output")
+        ms, host_us = device_ms(lambda X: kd.dchain_cuda(X, lv), bufs, reps=200)
+        plain_ms, _ = device_ms(lambda X: kd.dchain_plain(X, lv), bufs, reps=8, spin=False)
+        bound_ms, by = _bound((m * m + oe) * 4 * B, _dchain_flops(m, lv) * B)
+        print(f"K3 timing ({B}, {m}, {m}) sizes {lv} f32, {rot} rotating inputs: "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, no single PyTorch call computes "
+              f"the chain, bound {bound_ms:.4f} ms ({by}: "
+              f"{(m * m + oe) * 4 * B / 1e6:.1f} MB, "
+              f"{_dchain_flops(m, lv) * B / 1e9:.3f} GFLOP; {bound_ms / ms:.1%} of it "
+              f"reached); host {host_us:.1f} us per dchain_cuda call")
+        shapes.append(dict(shape=[B, m, m], sizes=list(lv), ms=ms, plain_ms=plain_ms,
+                           library_ms=None, bound_ms=bound_ms, bound_by=by))
+    return dict(max_abs_err=err_rec,
+                **{k: shapes[0][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                             "bound_by")},
+                shapes=shapes)
 
 
 def drive_path(mp, p, name, route, oracle, n_cells, needs):
@@ -582,9 +601,8 @@ def phase_main(card):
             check(launches[name]["gj_blocks"] == 3 * launches[name]["dchain"],
                   f"{name}: {launches[name]['gj_blocks']} K2 launches for "
                   f"{launches[name]['dchain']} factorisations, not 3 each")
-        # warm runs of one batch in this process: the end-to-end metric is
-        # their median, and their spread is the noise within one process
-        res2, walls, med, spread = mp.warm_walls(p, seed=1, route=route)
+        # a warm run of one batch in this process: the end-to-end metric
+        res2, walls, med, spread = mp.warm_walls(p, seed=1, route=route, runs=EARLY_WARM)
         check(bool(np.isin(res2.flag.cpu().numpy(), (0, 1, 3)).all()),
               f"{name} warm run: bad flags")
         att2 = (res2.n_steps + res2.n_rejected).cpu().numpy()
@@ -690,7 +708,7 @@ def phase_simulate(card, oracle):
     check(launches > 0, "the simulate phase never launched K1")
 
     walls = []
-    for _ in range(mp.WARM_RUNS):
+    for _ in range(EARLY_WARM):
         s, w = mp.run_single(p)
         walls.append(w)
     med, spread, ws = _walls_line(walls)
@@ -741,7 +759,7 @@ def phase_tstops(card, oracle, path1):
     check(abs(t_end - float(oracle["t_end"])) <= 5.0, "tstops: cell 0 exit time off the oracle")
     check(abs(V_end - float(oracle["V_end"])) <= 8e-3, "tstops: cell 0 V_end off the oracle")
     walls = []
-    for _ in range(mp.WARM_RUNS):
+    for _ in range(EARLY_WARM):
         res2, w = mp.run_tstops(p, seed=0)
         walls.append(w)
     check(bool((res2.flag.cpu().numpy() == 3).all()), "tstops warm run: bad flags")
@@ -802,7 +820,7 @@ def phase_gitt(card):
     check(launches > 0, "the gitt phase never launched K1")
     check(trips["reinit"] > 0, "the gitt phase never re-initialized")
     walls = []
-    for _ in range(mp.WARM_RUNS):
+    for _ in range(EARLY_WARM):
         res2, w = mp.run_gitt(p, seed=0)
         walls.append(w)
     check_gitt(res2, t_off, mp.GITT_TF)
@@ -863,7 +881,7 @@ def phase_cccv(card):
           f"steps {sE.results[0].n_steps}; cccv phase: {launches} K1 launches")
     check(launches > 0, "the cccv phase never launched K1")
     walls = []
-    for _ in range(mp.WARM_RUNS):
+    for _ in range(EARLY_WARM):
         s2, w = mp.run_cccv(p)
         walls.append(w)
     check_cccv(s2)
@@ -968,8 +986,8 @@ def check_sei(res, p, name):
 def phase_sei(card):
     """Path 7 (NMC with SEI aging, 256 cells, float32): the default route
     with K1 at the 92-state core, cell 0 against the same cell in float64
-    on the card, the full-kernel route (K2, K3) against it, three warm
-    runs. Returns (launches of route 1, launches of route 2)."""
+    on the card, the full-kernel route (K2, K3) against it, a warm run.
+    Returns (launches of route 1, launches of route 2)."""
     import numpy as np
     import torch
     import petlion_tpu_torch as ptt
@@ -1038,7 +1056,7 @@ def phase_sei(card):
     check(dv64 <= 2e-3, f"path 7 cell 0: {dv64} V off the float64 run")
 
     walls = []
-    for _ in range(mp.WARM_RUNS):
+    for _ in range(EARLY_WARM):
         r, w = mp.run_sei(p, seed=1)
         walls.append(w)
     check_sei(r, p, "path 7 warm run")
@@ -1150,6 +1168,270 @@ def phase_variants(card):
     return k1
 
 
+PEAK_FP64_FLOP_PER_S = 34e12   # H100 SXM FP64 outside the tensor cores (data sheet)
+
+
+def phase_k1_core121(cores):
+    """K1 at path 9's thermal core (121 states) in float64, the `<16, 8>`
+    instance no earlier path ran: random equilibrated matrices at (128, 121)
+    against the plain blocked version and its mirror (1e-10) and a float64
+    torch.linalg.inv (1e-9 of the scale); the real thermal Newton cores
+    under the dT hold (nearly singular: the pivot-free kernel and the plain
+    version are each held against a pivoted float64 inverse, and the kernel
+    must be as accurate as the plain version, 4× plus 1e-12) at (1, 121) and
+    tiled to (128, 121); the time at both shapes over rotating inputs behind
+    the spin, beside the bound, the plain version and torch.linalg.inv_ex;
+    and the registers and spills of the float64 T = 16, P = 8 tile."""
+    import torch
+    from petlion_tpu_torch.ops import gj_kernel as gk
+    from petlion_tpu_torch.solver.linsolve import _equilibrate
+    n = 121
+    A = _equilibrated_inputs(128, n, torch.float64, seed=121)
+    X = gk.gj_inverse_cuda(A)
+    err = float((X - gk.gj_inverse_blocked(A, bs=gk._best_bs(n))).abs().max())
+    err_m = float((X - gk.gj_inverse_inplace(A)).abs().max())
+    X64 = torch.linalg.inv(A)
+    err_inv = float(((X - X64).abs() / X64.abs().amax(dim=(-2, -1), keepdim=True)).max())
+    print(f"K1 f64 (128, {n}) random: max|kernel - plain| = {err:.3e}, max|kernel - "
+          f"mirror| = {err_m:.3e}, vs torch.linalg.inv / scale {err_inv:.3e}")
+    check(err <= 1e-10 and err_m <= 1e-10, f"K1 f64 disagrees with plain at (128, {n})")
+    check(err_inv <= 1e-9, f"K1 f64 inverse off at (128, {n}): {err_inv}")
+
+    record = dict(max_abs_err=err)
+    As = _equilibrate(cores.to("cuda"))[0].contiguous()
+    for B in (1, 128):
+        Ab = As.repeat(-(-B // As.shape[0]), 1, 1)[:B].contiguous()
+        ref = torch.linalg.inv(Ab)
+        scale = ref.abs().amax(dim=(-2, -1), keepdim=True)
+        e_k = float(((gk.gj_inverse_cuda(Ab) - ref).abs() / scale).max())
+        e_p = float(((gk.gj_inverse_blocked(Ab, bs=gk._best_bs(n)) - ref).abs() / scale).max())
+        e_kp = float(((gk.gj_inverse_cuda(Ab) - gk.gj_inverse_inplace(Ab)).abs() / scale).max())
+        print(f"K1 f64 real dT-hold thermal cores ({B}, {n}): relative error against a "
+              f"pivoted float64 inverse: kernel {e_k:.3e}, plain {e_p:.3e}; kernel vs "
+              f"mirror {e_kp:.3e}")
+        check(e_k <= 4 * e_p + 1e-12, f"K1 f64 less accurate than plain on the thermal cores ({B})")
+
+    shapes = []
+    for B, rot in ((1, 64), (128, 8)):
+        bufs = [_equilibrated_inputs(B, n, torch.float64, seed=1210 + i) for i in range(rot)]
+        ms, host_us = device_ms(gk.gj_inverse_cuda, bufs, reps=200)
+        plain_ms, _ = device_ms(lambda X: gk.gj_inverse_blocked(X, bs=gk._best_bs(n)), bufs,
+                                reps=8, spin=False)
+        library_ms, _ = device_ms(lambda X: torch.linalg.inv_ex(X)[0], bufs, reps=8,
+                                  spin=False)
+        bytes_ms = 2 * B * n * n * 8 / PEAK_BYTES_PER_S * 1e3
+        ops_ms = 2 * n ** 3 * B / PEAK_FP64_FLOP_PER_S * 1e3
+        bound_ms, by = max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+        print(f"K1 timing ({B}, {n}) f64, {rot} rotating inputs: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, torch.linalg.inv_ex {library_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({by}: {2 * B * n * n * 8 / 1e6:.2f} MB = {bytes_ms:.4f} ms, "
+              f"{2 * n ** 3 * B / 1e9:.4f} GFLOP = {ops_ms:.4f} ms at FP64 34 TFLOP/s; "
+              f"{bound_ms / ms:.1%} of it reached); host {host_us:.1f} us per call")
+        shapes.append(dict(shape=[B, n, n], ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+                           bound_ms=bound_ms, bound_by=by))
+    regs, spill = _ptxas_instance(gk.BUILD_LOGS.get("gj_inverse", ""),
+                                  "gj_inverse_kernelIdLi16ELi8E")
+    print(f"K1 tile T = 16, P = 8 (double), which n = {n} takes: {regs} registers, spill "
+          f"stores/loads {spill} bytes")
+    record.update({k: shapes[0][k] for k in ("ms", "plain_ms", "library_ms", "bound_ms",
+                                             "bound_by")})
+    record.update(shape=[1, n, n], shapes=shapes, registers=regs,
+                  spill_bytes=None if spill is None else list(spill))
+    return record
+
+
+def phase_protocol(card):
+    """Path 8: the JAX suite's 2_cc_cv_protocol, 1024 LCO cells through CC
+    (2C to V_max 4.1 V) then CV (V held to SOC 1) in float32 on the default
+    route: every cell leaves CC at V_max (flag 2) and CV at SOC_max (flag
+    4), its final SOC within 2e-3 of 1, K1 launched at n = 71; the spread of
+    switch times; three warm walls give protocols/s. Returns the K1
+    launches of the first run."""
+    import numpy as np
+    from petlion_tpu_torch import main_path as mp
+    from petlion_tpu_torch.ops import gj_kernel as gk
+    from petlion_tpu_torch.solver import run as runner
+
+    p = mp.model(device="cuda")
+
+    def checked(results, name):
+        cc, cv = results
+        f_cc, f_cv = cc.flag.cpu().numpy(), cv.flag.cpu().numpy()
+        soc = cv.soc_final.cpu().double().numpy()
+        check(bool((f_cc == 2).all()), f"{name}: CC flags {sorted(set(f_cc.tolist()))}")
+        check(bool((f_cv == 4).all()), f"{name}: CV flags {sorted(set(f_cv.tolist()))}")
+        check(float(np.abs(soc - 1.0).max()) <= 2e-3, f"{name}: final SOC off 1")
+        check(bool(np.isfinite(cv.y_final.cpu().numpy()).all()), f"{name}: non-finite states")
+        return cc, cv, soc
+
+    gk.reset_launch_counts()
+    runner.reset_trip_counts()
+    results, wall = mp.run_protocol(p, seed=0)
+    launches = gk.LAUNCHES["gj_inverse"]
+    by_n = dict(sorted(gk.LAUNCHES_BY_N["gj_inverse"].items()))
+    trips = runner.TRIPS["trips"]
+    cc, cv, soc = checked(results, "path 8")
+    t_sw = cc.t_final.cpu().double().numpy()
+    att = [(r.n_steps + r.n_rejected).cpu().numpy().astype(float) for r in results]
+    print(f"path 8 (first run, includes plan build): {wall:.3f} s for {mp.B_MAIN} cells, "
+          f"{launches} K1 launches (by n {by_n}), {trips} trips; CC exits all V_max, CV "
+          f"exits all SOC_max; switch times {t_sw.min():.2f}-{t_sw.max():.2f} s (std "
+          f"{t_sw.std():.4f} s); final SOC max |1 - SOC| {np.abs(soc - 1).max():.2e}; "
+          f"attempts/cell CC {att[0].mean():.2f}, CV {att[1].mean():.2f}")
+    check(by_n.get(71, 0) > 0, "path 8 never launched K1 at n = 71")
+    walls = []
+    for _ in range(mp.WARM_RUNS):
+        r2, w = mp.run_protocol(p, seed=1)
+        walls.append(w)
+    checked(r2, "path 8 warm run")
+    med, spread, ws = _walls_line(walls)
+    print(f"path 8 (warm, {len(walls)} protocols of one batch): walls {ws} s, median "
+          f"{med:.3f} s = {mp.B_MAIN / med:.1f} protocols/s, spread {spread:.1%} [{card}]")
+    return launches
+
+
+def phase_thermal(card):
+    """Path 9: the JAX suite's 3_thermal_cc_ct_cv, one thermal LCO cell
+    through CC (4C to T_max 313.15 K), CT (the mean temperature held to
+    V_max 4.1 V) and CV (V held to SOC 1) via `simulate_protocol`. Float32
+    (abstol 5e-4, reltol 1e-3, the refined pivoted LU): the three exits, t
+    within 1% of the reference's 1865.61 s, I within 6% of 0.1959C, the
+    final T in kelvin in (290, 330) K. Float64 (the model's tolerances, K1
+    at the 121-state core): t within 0.5%, I within 2.5%, V within 1e-3 of
+    4.1 V, the thickness-weighted mean T within 0.1 K of 298.846 K, V equal
+    to the CPU's run to 1e-9 V, and the full-kernel route's run (K2 groups,
+    K3 chain on the 121 core) within twice the CPU's own gap between the two
+    routes of the CPU's full-kernel run, the two routes' gap printed on both
+    devices. Walls:
+    float32 median of three warm, float64 one warm. Returns (K1 launches at
+    n = 121 of the float64 run, the float32 run's LU factorizations)."""
+    import numpy as np
+    import torch
+    from petlion_tpu_torch import main_path as mp
+    from petlion_tpu_torch.ops import gj_kernel as gk
+    from petlion_tpu_torch.sim import _mean_T_host
+    from petlion_tpu_torch.solver import linsolve
+
+    exits = ["Above max. temperature", "Above max. voltage", "Above max. SOC"]
+
+    def summary(sol):
+        return (f"exits {sol.exit_reasons()}, segment ends "
+                f"{[round(r.tspan[1], 3) for r in sol.results]} s, t_end "
+                f"{float(sol.t[-1]):.3f} s, I_final {float(sol.I[-1]):.5f}C, V "
+                f"{float(sol.V[-1]):.6f} V, SOC {float(sol.SOC[-1]):.6f}; steps "
+                f"{[r.n_steps for r in sol.results]}, rejected "
+                f"{[r.n_rejected for r in sol.results]}")
+
+    def check32(sol, name):
+        t_end, I_end = float(sol.t[-1]), float(sol.I[-1])
+        T = sol.Y_final[sol_layout.sl("T")]
+        check(sol.exit_reasons() == exits, f"{name}: exits {sol.exit_reasons()}")
+        check(abs(t_end - 1865.61) / 1865.61 < 0.01, f"{name}: t_end {t_end}")
+        check(abs(I_end - 0.1959) / 0.1959 < 0.06, f"{name}: I_final {I_end}")
+        check(bool(((T > 290.0) & (T < 330.0)).all()), f"{name}: final T {T.min()}-{T.max()} K")
+
+    p32 = mp.thermal_model(dtype=torch.float32)
+    sol_layout = p32.layout
+    gk.reset_launch_counts()
+    linsolve.LU_FACTORS[0] = 0
+    s32, wall = mp.run_thermal(p32)
+    lu32 = linsolve.LU_FACTORS[0]
+    k1_32 = gk.LAUNCHES["gj_inverse"]
+    print(f"path 9 float32 (first run, includes plan build): {wall:.3f} s, {summary(s32)}; "
+          f"{lu32} pivoted LU factorizations, {k1_32} K1 launches")
+    check32(s32, "path 9 float32")
+    check(lu32 > 0, "path 9 float32 never took the pivoted LU")
+    walls = []
+    for _ in range(mp.WARM_RUNS):
+        s, w = mp.run_thermal(p32)
+        walls.append(w)
+    check32(s, "path 9 float32 warm run")
+    med, spread, ws = _walls_line(walls)
+    print(f"path 9 float32 (warm, {len(walls)} runs): walls {ws} s, median {med:.3f} s, "
+          f"spread {spread:.1%} [{card}]")
+
+    p64 = mp.thermal_model(dtype=torch.float64)
+    gk.reset_launch_counts()
+    linsolve.LU_FACTORS[0] = 0
+    s64, wall = mp.run_thermal(p64)
+    by_n = dict(sorted(gk.LAUNCHES_BY_N["gj_inverse"].items()))
+    Tm = _mean_T_host(s64.Y_final, p64)
+    print(f"path 9 float64 (first run): {wall:.3f} s, {summary(s64)}; mean T "
+          f"{Tm:.5f} K; K1 launches by n {by_n}, {linsolve.LU_FACTORS[0]} LU")
+    check(s64.exit_reasons() == exits, f"path 9 float64: exits {s64.exit_reasons()}")
+    check(abs(float(s64.t[-1]) - 1865.61) / 1865.61 < 0.005, "path 9 float64: t_end")
+    check(abs(float(s64.I[-1]) - 0.1959) / 0.1959 < 0.025, "path 9 float64: I_final")
+    check(abs(float(s64.V[-1]) - 4.1) < 1e-3, "path 9 float64: V_final")
+    check(abs(Tm - 298.846) < 0.1, f"path 9 float64: mean T {Tm}")
+    check(by_n.get(121, 0) > 0 and by_n.get(71, 0) > 0,
+          "path 9 float64 never launched K1 at the 121-state core and the init block")
+    s, w64 = mp.run_thermal(p64)
+    print(f"path 9 float64 (warm, 1 run): {w64:.3f} s [{card}]")
+
+    # card = CPU, as |dV| in volts: the default route (K1) to 1e-9 V. The
+    # full-kernel route is held to twice the gap between the two routes'
+    # plain versions on the CPU, this flow's sensitivity to the order of
+    # the arithmetic: two elimination orders of the dT-hold core (cond near
+    # 1e16) part by 1.128e-9 V there, and the card's K2/K3 lay 1.47e-9 V
+    # from their plain versions (ROADMAP C)
+    def max_dv(a, b):
+        return (float(np.abs(a.V - b.V).max()) if len(a.V) == len(b.V) else float("inf"))
+
+    cpu = mp.thermal_model(device="cpu", dtype=torch.float64)
+    s_cpu = mp.run_thermal(cpu)[0]
+    dv = max_dv(s64, s_cpu)
+    print(f"path 9 float64 card against the CPU: max |dV| {dv:.3e} V, steps "
+          f"{[r.n_steps for r in s_cpu.results]} on the CPU")
+    check(dv <= 1e-9, f"path 9 float64: card and CPU {dv} V apart")
+
+    gk.reset_launch_counts()
+    s_fk, w_fk = mp.run_thermal(p64, route=mp.PATH2)
+    fk = {k: dict(sorted(v.items())) for k, v in gk.LAUNCHES_BY_N.items()}
+    s_fk_cpu = mp.run_thermal(cpu, route=mp.PATH2)[0]
+    dv_fk, order_gap = max_dv(s_fk, s_fk_cpu), max_dv(s_fk_cpu, s_cpu)
+    print(f"path 9 float64, full-kernel route: {w_fk:.3f} s, {summary(s_fk)}; launches by n "
+          f"{fk}; max |dV| against the CPU's full-kernel route {dv_fk:.3e} V; between the "
+          f"two routes {max_dv(s_fk, s64):.3e} V on the card, {order_gap:.3e} V on the CPU")
+    check(fk["gj_blocks"] and fk["dchain"].get(121, 0) > 0,
+          "path 9's full-kernel route did not run K2 and K3 at the 121 core")
+    check(dv_fk <= 2.0 * order_gap,
+          f"path 9 full-kernel route: card and CPU {dv_fk} V apart, the CPU's two routes "
+          f"{order_gap} V")
+    return by_n.get(121, 0), lu32
+
+
+def phase_thermal_batched(card):
+    """Path 10, its first chunk: 128 thermal LCO cells in float32, 250 s of
+    a 1C discharge from SOC 1 through the refined pivoted LU: every cell's
+    flag in {0, 1, 3}, finite states; attempts per cell, the wall and the
+    LU factorizations."""
+    import numpy as np
+    from petlion_tpu_torch import main_path as mp
+    from petlion_tpu_torch.ops import gj_kernel as gk
+    from petlion_tpu_torch.solver import linsolve
+    from petlion_tpu_torch.solver import run as runner
+
+    p = mp.thermal_model()
+    gk.reset_launch_counts()
+    runner.reset_trip_counts()
+    linsolve.LU_FACTORS[0] = 0
+    results, wall = mp.run_thermal_batched(p, seed=0, chunks=1)
+    r = results[0]
+    flags = r.flag.cpu().numpy()
+    att = (r.n_steps + r.n_rejected).cpu().numpy().astype(float)
+    lu = linsolve.LU_FACTORS[0]
+    print(f"path 10, chunk 1 of {mp.THERMAL_CHUNKS} ({mp.THERMAL_CHUNK_TF:g} s): {wall:.3f} s "
+          f"for {mp.THERMAL_B} cells (includes plan build), flags "
+          f"{dict(zip(*np.unique(flags, return_counts=True)))}; attempts/cell mean "
+          f"{att.mean():.2f} max {att.max():.0f}; {runner.TRIPS['trips']} trips, {lu} pivoted "
+          f"LU factorizations, {gk.LAUNCHES['gj_inverse']} K1 launches [{card}]")
+    check(bool(np.isin(flags, (0, 1, 3)).all()), f"path 10: flags {sorted(set(flags.tolist()))}")
+    check(bool(np.isfinite(r.y_final.cpu().numpy()).all()), "path 10: non-finite states")
+    check(lu > 0, "path 10 never took the pivoted LU")
+    return lu
+
+
+
 def main():
     import numpy as np
     import torch
@@ -1168,8 +1450,11 @@ def main():
         D91 = newton_matrices(chemistry=ptt.NMC_LGM50, temperature=False,
                               aging="stress")[0]
         k1_92 = phase_k1_core92([("SEI", D92), ("stress", D91)])
+        D121 = newton_matrices(temperature=True, hold_dT=True)[0]
+        k1_121 = phase_k1_core121(D121)
         k2 = phase_k2(groups)
-        k3 = phase_k3(Dp, sizes)
+        _, Dp92, sizes92, _ = newton_matrices(chemistry=ptt.NMC, aging="SEI")
+        k3 = phase_k3(Dp, sizes, (Dp92, sizes92))
         launches, path1 = phase_main(card)
         oracle = np.load(ORACLE)
         k1_simulate = phase_simulate(card, oracle)
@@ -1179,18 +1464,23 @@ def main():
         sei1, sei1_by_n, sei2 = phase_sei(card)
         k1_cycling = phase_sei_cycling(card)
         k1_variants = phase_variants(card)
+        k1_protocol = phase_protocol(card)
+        k1_thermal, lu_thermal = phase_thermal(card)
+        lu_batched = phase_thermal_batched(card)
     except Exception:   # report any phase failure and exit non-zero
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     k1_launches = (launches["path 1"]["gj_inverse"] + k1_simulate + k1_tstops + k1_gitt
-                   + k1_cccv)
+                   + k1_cccv + k1_protocol)
     print(f"K1 launches: path 1 {launches['path 1']['gj_inverse']}, simulate "
-          f"{k1_simulate}, tstops {k1_tstops}, gitt {k1_gitt}, cccv {k1_cccv}, "
-          f"in all {k1_launches}; path 7 {sei1['gj_inverse']} "
+          f"{k1_simulate}, tstops {k1_tstops}, gitt {k1_gitt}, cccv {k1_cccv}, protocol "
+          f"(path 8) {k1_protocol}, in all {k1_launches}; path 7 {sei1['gj_inverse']} "
           f"({sei1_by_n['gj_inverse'].get(92, 0)} at n = 92), sei cycling {k1_cycling}, "
           f"variants {k1_variants}; path 7's full-kernel route: K2 {sei2['gj_blocks']}, "
-          f"K3 {sei2['dchain']}")
+          f"K3 {sei2['dchain']}; path 9 float64 {k1_thermal} at n = 121; pivoted LU "
+          f"factorizations: path 9 float32 {lu_thermal}, path 10's first chunk {lu_batched}")
+    print(f"chip_smoke wall: {time.time() - T_START:.1f} s")
     records = [
         {"name": "gj_inverse", "route": "cuda",
          "source": "petlion_tpu_torch/csrc/gj_inverse.cu",
@@ -1200,6 +1490,10 @@ def main():
          "source": "petlion_tpu_torch/csrc/gj_inverse.cu",
          "replaces": "petlion_tpu/ops/pallas_gj.py:57",
          "launches": sei1_by_n["gj_inverse"].get(92, 0), **k1_92},
+        {"name": "gj_inverse_n121_f64", "route": "cuda",
+         "source": "petlion_tpu_torch/csrc/gj_inverse.cu",
+         "replaces": "petlion_tpu/ops/pallas_gj.py:57",
+         "launches": k1_thermal, **k1_121},
         {"name": "gj_blocks", "route": "cuda",
          "source": "petlion_tpu_torch/csrc/gj_blocks.cu",
          "replaces": "petlion_tpu/ops/pallas_gj.py:57",

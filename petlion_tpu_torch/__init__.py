@@ -10,6 +10,8 @@ Entry points run on CUDA unless the caller passes ``device="cpu"``.
     p   = petlion(LCO)                          # on CUDA, float64
     sol = simulate(p, I=-1, SOC=1)              # one cell → Solution
     res = batch_simulate(p, 3.9e3, I=-1, SOC=1, theta_batch={...})
+    sol = simulate_protocol(p, [dict(I=2, V_max=4.1), dict(V="hold")], SOC=0)
+    rs  = batch_protocol(p, [...], SOC=0, theta_batch={...})  # per segment
 """
 
 from .chemistry import LCO, NMC, NMC_LGM50
@@ -28,6 +30,7 @@ from .physics.transport import (D_s_eff, D_s_eff_isothermal, rxn_rate,
                                 thermodynamic_factor_linear)
 from .parallel.batch import batch_simulate
 from .physics.residuals import ModelConfig, calc_I1C, residual_core
+from .protocols import batch_protocol, simulate_protocol
 from .sim import (Model, calc_OCV, calc_R_internal, petlion, simulate,
                   simulate_cont)
 from .solution import RunResult, Solution, reset_t
@@ -53,6 +56,7 @@ __all__ = [
     "rxn_rate_isothermal", "D_eff", "D_eff_linear", "D_eff_linear_one_term",
     "K_eff", "K_eff_isothermal", "thermodynamic_factor",
     "thermodynamic_factor_linear", "kinetics", "ocv", "transport",
+    "simulate_protocol", "batch_protocol",
 ]
 
 # the JAX package's reference-name aliases, for what is ported

@@ -189,9 +189,8 @@ def NMC_LGM50(
     OCV_p: Callable = ocv.OCV_NMC_LGM50,
     OCV_n: Callable = ocv.OCV_LiC6_LGM50,
 ):
-    """The LG M50 cell. Its default is ``temperature=True``, as in the JAX
-    package; the port runs it with ``temperature=False`` until the thermal
-    model is ported."""
+    """The LG M50 cell, thermal by default (``temperature=True``), as in the
+    JAX package."""
     theta: Dict[str, float] = {
         # cathode (NMC811)
         "D_sp": 4e-15, "k_p": 3.5445802224420315e-11, "lambda_MHC_p": 0.0,

@@ -60,12 +60,34 @@ Path 7 is the JAX suite's SEI configuration (``bench_suite.py``
   suite's tolerances (abstol 5e-4, reltol 1e-3), recording ``t``, ``V`` and
   ``SOH``.
 
+Three paths drive the thermal model and the protocols, each the JAX
+suite's configuration (``bench_suite.py``) at its published width:
+
+* path 8, ``run_protocol``: the suite's ``2_cc_cv_protocol`` —
+  ``batch_protocol`` of ``B_MAIN`` isothermal LCO cells in float32 from SOC
+  0 with path 1's options and θ sweep, ``CCCV_SEGMENTS`` (2C to V_max 4.1
+  or SOC 1, then V held to SOC 1); K1 at (1024, 71, 71);
+* path 9, ``run_thermal``: the suite's ``3_thermal_cc_ct_cv`` —
+  ``simulate_protocol`` of one thermal LCO cell (``thermal_model``, 351
+  states, a 121-state Newton core) through ``THERMAL_SEGMENTS`` (4C to
+  T_max 313.15 K, the mean temperature held to V_max 4.1, then V held to
+  SOC 1) from SOC 0 with max_save 256; in float32 with abstol 5e-4 and
+  reltol 1e-3 (the refined pivoted LU, no TPU kernel), in float64 with the
+  model's tolerances (K1 at (1, 121, 121) and the 71-state init block), on
+  path 1's route or, with ``route=PATH2``, the full-kernel route;
+* path 10, ``run_thermal_batched``: the suite's
+  ``3b_thermal_discharge_batched`` — ``THERMAL_B`` = 128 thermal LCO cells
+  in float32 with path 1's options and the first 128 cells of its θ sweep,
+  a 1C discharge from SOC 1 in ``THERMAL_CHUNKS`` = 16 chunks of
+  ``THERMAL_CHUNK_TF`` = 250 s, each chunk continuing from the last one's
+  states and SOC (``batch_simulate(y_start=...)``); the refined pivoted LU.
+
 ``newton_matrices`` builds the Newton matrices of the main path that the
 kernels see, for the tests and ``chip_smoke.py`` to hold the kernels on real
 inputs.
 ``chip_smoke.py`` checks these programs; run as a script,
 
-    python -m petlion_tpu_torch.main_path [path1|...|path6|path7 ...]
+    python -m petlion_tpu_torch.main_path [path1|...|path9|path10 ...]
 
 profiles each named path (path 1 and path 2 by default) on the card: one
 cold run, one warm run under ``torch.profiler`` (CPU and CUDA activities)
@@ -74,7 +96,11 @@ the device time summed over all kernels, the kernels per outer trip, the
 device-busy share of the wall, each hand-written kernel's launches and
 share, and the kernels that take the most device time; for path 5 also the
 outer trips, the trips that ran a re-initialization and their share of the
-wall, and the control-function evaluations per trip.
+wall, and the control-function evaluations per trip; for the float32
+thermal paths (path 9 is profiled in float32) the pivoted LU
+factorizations. ``path10`` first runs all
+``THERMAL_CHUNKS`` chunks once and prints the attempts per cell beside the
+JAX suite's TPU record, then profiles its first chunk.
 """
 
 from __future__ import annotations
@@ -91,7 +117,9 @@ from .chemistry import LCO, NMC
 from .ops import gj_kernel
 from .ops.plan import FULL_KERNEL_ROUTE, Route
 from .parallel.batch import batch_simulate
+from .protocols import batch_protocol, simulate_protocol
 from .sim import Model, petlion, simulate, simulate_cont
+from .solver import linsolve
 from .solver import run as runner
 
 B_MAIN = 1024
@@ -110,6 +138,13 @@ PATHS = {"path1": PATH1, "path2": PATH2}
 SEI_B = 256
 SEI_OPTS = dict(BENCH_OPTS, max_save=128, outputs=("t", "V", "SOH"))
 SEI_CYCLE_TOL = dict(abstol=5e-4, reltol=1e-3)
+CCCV_SEGMENTS = [dict(I=2.0, V_max=4.1, SOC_max=1.0), dict(V="hold", SOC_max=1.0)]
+THERMAL_SEGMENTS = [dict(I=4, V_max=4.1, T_max=313.15), dict(dT="hold", V_max=4.1),
+                    dict(V="hold")]
+THERMAL_F32_TOL = dict(abstol=5e-4, reltol=1e-3)
+THERMAL_B = 128
+THERMAL_CHUNKS = 16
+THERMAL_CHUNK_TF = 250.0
 KERNEL_SYMBOLS = {"gj_inverse": "gj_inverse_kernel",
                   "gj_blocks": "gj_blocks_kernel", "dchain": "dchain_kernel"}
 
@@ -263,25 +298,68 @@ def run_sei_cycling(p: Model, cycles: int = 3):
     return _timed(chain)
 
 
-def warm_walls(p: Model, seed: int, route: Route = PATH1):
-    """WARM_RUNS runs of one batch in this process: the last run's result,
-    the walls, their median and their relative spread (max − min) / median."""
+def run_protocol(p: Model, seed: int, n_cells: int = B_MAIN):
+    """Path 8: the CC-CV protocol of `n_cells` cells of path 1's θ sweep on
+    `p` (path 1's model): (per-segment RunResultDev list, wall seconds)."""
+    tb = {k: v[:n_cells] for k, v in theta_batch(seed).items()}
+    return _timed(lambda: batch_protocol(p, CCCV_SEGMENTS, SOC=0.0, theta_batch=tb))
+
+
+def thermal_model(device="cuda", dtype=torch.float32) -> Model:
+    """Paths 9 and 10's thermal LCO model."""
+    return petlion(LCO, temperature=True, device=device, dtype=dtype)
+
+
+def run_thermal(p: Model, route: Route | None = None):
+    """Path 9: the CC-CT-CV protocol of one thermal cell, (Solution, wall
+    seconds); float32 at ``THERMAL_F32_TOL``, float64 at the model's
+    tolerances."""
+    tol = THERMAL_F32_TOL if p.dtype == torch.float32 else {}
+    return _timed(lambda: simulate_protocol(p, THERMAL_SEGMENTS, SOC=0.0,
+                                            max_save=256, route=route, **tol))
+
+
+def run_thermal_batched(p: Model, seed: int, chunks: int = THERMAL_CHUNKS,
+                        n_cells: int = THERMAL_B):
+    """Path 10: `chunks` chunks of the thermal 1C discharge of `n_cells`
+    cells, each from the last one's states and SOC: (list of RunResultDev,
+    wall seconds)."""
+    tb = {k: v[:n_cells] for k, v in theta_batch(seed).items()}
+
+    def chain():
+        out, y, soc = [], None, 1.0
+        for _ in range(chunks):
+            r = batch_simulate(p, THERMAL_CHUNK_TF, I=-1.0, SOC=soc, theta_batch=tb,
+                               y_start=y, outputs=("t", "V"), **BENCH_OPTS)
+            y, soc = r.y_final, r.soc_final.cpu().numpy()
+            out.append(r)
+        return out
+    return _timed(chain)
+
+
+def warm_walls(p: Model, seed: int, route: Route = PATH1, runs: int = WARM_RUNS):
+    """`runs` runs of one batch in this process: the last run's result, the
+    walls, their median and their relative spread (max − min) / median."""
     walls = []
-    for _ in range(WARM_RUNS):
+    for _ in range(runs):
         res, wall = run(p, seed, route)
         walls.append(wall)
     med = statistics.median(walls)
     return res, walls, med, (max(walls) - min(walls)) / med
 
 
-def newton_matrices(n_states: int = 8, seed: int = 0, chemistry=LCO, **options):
+def newton_matrices(n_states: int = 8, seed: int = 0, chemistry=LCO,
+                    hold_dT: bool = False, **options):
     """Newton matrices of the main path (float64, CPU) at perturbed states
     with BDF coefficients c0 from 0.05 to 50, as the factorization sees
     them: (core, permuted, sizes, groups) — the Schur core after the group
     eliminations (n_states, 71, 71), the same permuted so that the nested
     levels lead, the level sizes, and the equilibrated particle and c_e
     group blocks. `chemistry` and `options` pick another model (path 7's:
-    ``chemistry=NMC, aging="SEI"``, a 92-state core)."""
+    ``chemistry=NMC, aging="SEI"``, a 92-state core; path 9's:
+    ``temperature=True``, a 121-state core, with T offsets of a few K), and
+    `hold_dT` the control row of path 9's CT segment (the mean temperature
+    held), which makes the core nearly singular."""
     from .ops import structured as st
     from .ops.plan import get_plan
     from .physics.initial_guess import initial_guess
@@ -298,13 +376,20 @@ def newton_matrices(n_states: int = 8, seed: int = 0, chemistry=LCO, **options):
     for name, scale in (("j", 1e-6), ("Phi_e", 1e-2)):
         s = L.sl(name)
         y[:, s] = scale * rng.standard_normal((n_states, s.stop - s.start))
+    if "T" in L:
+        s = L.sl("T")
+        y[:, s] = 3.0 + rng.standard_normal((n_states, s.stop - s.start))
     y[:, L.sl("I").start] = -1.0
     y = torch.as_tensor(y)
     c0 = torch.as_tensor(np.geomspace(0.05, 50.0, n_states), **kw)
     data = dict(th, _c0=c0[:, None],
                 _const=torch.as_tensor(1e-3 * rng.standard_normal(y.shape)) - c0[:, None] * y)
-    data["_v"] = torch.full((n_states, 1), -1.0, **kw)
-    spec = control.ControlSpec("I")
+    data["_v"] = torch.full((n_states, 1), 0.0 if hold_dT else -1.0, **kw)
+    if hold_dT:
+        from .sim import _build_control
+        spec = _build_control(p, None, {"dT": "hold"})[1]
+    else:
+        spec = control.ControlSpec("I")
 
     def g(yy, d):
         return control.full_residual(spec, d["_v"][:, 0], 0.0, yy,
@@ -328,6 +413,17 @@ def _device_us(evt):
 def _path_run(name: str, p: Model, seed: int):
     """One run of a named path: (steps, rejected attempts) per cell as
     numpy arrays, and the wall."""
+    if name in ("path8", "path10"):
+        if name == "path8":
+            results, wall = run_protocol(p, seed)
+        else:
+            results, wall = run_thermal_batched(p, seed, chunks=1)
+        return (sum(r.n_steps for r in results).cpu().numpy(),
+                sum(r.n_rejected for r in results).cpu().numpy(), wall)
+    if name == "path9":
+        sol, wall = run_thermal(p)
+        return (np.array([sum(r.n_steps for r in sol.results)]),
+                np.array([sum(r.n_rejected for r in sol.results)]), wall)
     if name == "path7":
         res, wall = run_sei(p, seed)
         return res.n_steps.cpu().numpy(), res.n_rejected.cpu().numpy(), wall
@@ -357,11 +453,14 @@ def profile(p: Model, name: str, card: str):
     _path_run(name, p, seed=0)
     gj_kernel.reset_launch_counts()
     runner.reset_trip_counts()
+    linsolve.LU_FACTORS[0] = 0
     CURRENT_CALLS[0] = 0
     from torch.profiler import ProfilerActivity, profile as tprofile
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         steps, rejected, wall = _path_run(name, p, seed=1)
     launches = dict(gj_kernel.LAUNCHES)
+    by_n = {k: dict(sorted(v.items())) for k, v in gj_kernel.LAUNCHES_BY_N.items()}
+    lu = linsolve.LU_FACTORS[0]
     trips = dict(runner.TRIPS)
     calls = CURRENT_CALLS[0]
     walls = [_path_run(name, p, seed=1)[2] for _ in range(WARM_RUNS)]
@@ -393,8 +492,9 @@ def profile(p: Model, name: str, card: str):
               f"{calls / n_trips:.1f} per trip")
     for kname, symbol in KERNEL_SYMBOLS.items():
         k_s = sum(_device_us(e) for e in kernels if symbol in e.key) / 1e6
-        print(f"{kname} kernel: {launches[kname]} launches, {k_s * 1e3:.2f} ms "
-              f"({k_s / max(total_s, 1e-12):.2%} of device kernel time)")
+        print(f"{kname} kernel: {launches[kname]} launches (by n {by_n[kname]}), "
+              f"{k_s * 1e3:.2f} ms ({k_s / max(total_s, 1e-12):.2%} of device kernel time)")
+    print(f"pivoted LU factorizations: {lu} ({lu / n_trips:.1f} per trip)")
     sort_key = ("self_device_time_total"
                 if hasattr(kernels[0] if kernels else ka[0], "self_device_time_total")
                 else "self_cuda_time_total")
@@ -410,8 +510,27 @@ def main(names=("path1", "path2")):
     p32, p64 = model(), petlion(LCO)
     for name in names:
         p = (sei_model() if name == "path7"
+             else thermal_model() if name in ("path9", "path10")
              else p64 if name in ("path3", "path6") else p32)
+        if name == "path10":
+            chunks_all(p, card)
         profile(p, name, card)
+
+
+def chunks_all(p: Model, card: str):
+    """Path 10 in full: all THERMAL_CHUNKS chunks once, the attempts per
+    cell beside the JAX suite's TPU record (a count, not a target)."""
+    linsolve.LU_FACTORS[0] = 0
+    runner.reset_trip_counts()
+    results, wall = run_thermal_batched(p, seed=0)
+    att = sum((r.n_steps + r.n_rejected) for r in results).cpu().numpy()
+    flags = np.stack([r.flag.cpu().numpy() for r in results])
+    done = np.isin(flags, (1, 3)).any(axis=0)
+    print(f"== path10 in full: {THERMAL_CHUNKS} chunks of {THERMAL_CHUNK_TF:g} s, "
+          f"{len(att)} cells, {wall:.3f} s [{card}]; attempts/cell mean {att.mean():.1f} "
+          f"(the JAX suite's TPU record 4232.2) max {att.max()}; cells that exited at "
+          f"V_min or SOC_min {done.mean():.1%}; {runner.TRIPS['trips']} trips, "
+          f"{linsolve.LU_FACTORS[0]} pivoted LU factorizations")
 
 
 if __name__ == "__main__":

@@ -116,7 +116,7 @@ class ColoredJacobian:
         seeds = np.zeros((self.n_colors, n), dtype=np.float64)
         seeds[self.colors, np.arange(n)] = 1.0
         self._seeds = seeds
-        self._seeds_dev = {}    # (device, dtype) -> seeds tensor
+        self._seeds_dev = {}    # (device, dtype) -> seeds; and the dense mask
         self._mask = pattern.astype(np.float64)
         # the last row is computed exactly by a reverse pass
         self._mask_body = self._mask.copy()
@@ -131,6 +131,19 @@ class ColoredJacobian:
                                                    device=y.device)
         return (stacked_jvp(g, y, data, self._seeds_dev[key]),
                 last_row_grad(g, y, data))
+
+    def __call__(self, g: Callable, y, data: dict):
+        """The dense Newton matrix (B, N, N) from the colored sweeps (on the
+        pattern) and the exact control row."""
+        JS, last = self.compressed(g, y, data)
+        key = ("mask", y.device, y.dtype)
+        if key not in self._seeds_dev:
+            self._seeds_dev[key] = (
+                torch.as_tensor(self.colors, dtype=torch.int64, device=y.device),
+                torch.as_tensor(self._mask_body, dtype=y.dtype, device=y.device))
+        colors, mask = self._seeds_dev[key]
+        J = JS[:, colors, :].transpose(1, 2) * mask     # J[b,i,j] = JS[b,c[j],i]
+        return torch.cat([J[:, :-1], last[:, None, :]], dim=1)
 
     def submatrix_spec(self, rows: np.ndarray, cols: np.ndarray):
         """Static metadata to extract J[rows, cols] from (JS, last_row)."""

@@ -138,13 +138,28 @@ class JacobianPlan:
             J = JS[:, colors_alg, :].transpose(1, 2) * mask  # J[b,i,j]=JS[b,c[j],i]
         last = last_row_grad(alg_res, y_alg, data)
         J = torch.cat([J[:, :-1], last[:, None, :]], dim=1)
+        if self._lu_route(J):
+            # the algebraic block with a derivative-hold control row needs
+            # pivoting and refinement in float32, as the Newton matrix does
+            return linsolve.refined_lu_factor(J)
         return linsolve.equilibrated_inv_factor(J)
+
+    def _lu_route(self, like) -> bool:
+        """float32 with the thermal model factors through the refined
+        pivoted LU (as the JAX package's plan does): with a dT-hold row the
+        Newton matrix reaches cond 1e14–1e16, where pivot-free elimination
+        in float32 loses every digit."""
+        return like.dtype == torch.float32 and self.cfg.numerics.temperature
 
     def factor_compressed(self, g, y, data: dict, t=None, c0=None, th=None):
         """Newton-matrix factorization straight from the analytic assembly
         (when the plan has it and t, c0 and θ are given) or the colored
         sweeps; neither the dense (N, N) matrix nor the coupling blocks are
-        formed. g(y, data) is batch-first, `data` its per-cell tensors."""
+        formed. g(y, data) is batch-first, `data` its per-cell tensors.
+        float32 thermal runs take the refined pivoted LU of the dense
+        colored matrix instead (`_lu_route`)."""
+        if self._lu_route(y):
+            return linsolve.refined_lu_factor(self.colored(g, y, data))
         if self.analytic is not None and th is not None and c0 is not None:
             JS, last = self.analytic.compressed(t, y, c0, th, g, data)
         else:
@@ -154,6 +169,8 @@ class JacobianPlan:
                                    dchain=self.route.dchain)
 
     def solve(self, fac, b):
+        if isinstance(fac, linsolve.RefinedLU):
+            return linsolve.refined_lu_solve(fac, b)
         return sparse_schur_solve(fac, b, self.device_specs(b))
 
 
@@ -190,6 +207,8 @@ def _detect_pattern(cfg: ModelConfig, theta: dict) -> np.ndarray:
         y *= (1.0 + 0.05 * r.standard_normal(y.shape))
         y[L.sl("Phi_e")] = 0.01 * r.standard_normal(y[L.sl("Phi_e")].shape)
         y[L.sl("j")] = 1e-6 * r.standard_normal(y[L.sl("j")].shape)
+        if "T" in L:   # the T state is an offset from T_amb, may start at 0
+            y[L.sl("T")] = y[L.sl("T")] + 2.0 * r.standard_normal(y[L.sl("T")].shape)
         if "j_s" in L:
             y[L.sl("j_s")] = -1e-7 * r.random(y[L.sl("j_s")].shape)
         if "film" in L:

@@ -30,6 +30,7 @@ def batch_simulate(p: Model,
                    device=None,
                    dtype: Optional[torch.dtype] = None,
                    route: Optional[Route] = None,
+                   y_start=None,
                    **kwargs) -> RunResultDev:
     """Run the same control segment over a batch of cells.
 
@@ -41,26 +42,18 @@ def batch_simulate(p: Model,
     a constant input, per cell) may be scalars or (B,) arrays. `device`
     and `dtype` default to the model's. `route` selects the Newton-matrix
     assembly and factorization (``ops.plan.Route``; default: the
-    PETLION_* environment variables, as in the JAX package). Returns
-    RunResultDev with a leading cells axis on every field.
+    PETLION_* environment variables, as in the JAX package). `y_start`
+    (B, N) continues from the solver's own states, such as an earlier
+    result's ``y_final`` (with the thermal model their T block is
+    T − T_amb), with that result's ``soc_final`` as SOC: a long run in
+    chunks. Returns RunResultDev with a leading cells axis on every field.
     """
     dtype = p.dtype if dtype is None else dtype
     dev = resolve_device(p.device if device is None else device, dtype)
     kw = dict(dtype=dtype, device=dev)
 
-    if theta_batch:
-        sizes = {int(np.shape(v)[0]) for v in theta_batch.values()}
-        if len(sizes) != 1:
-            raise ValueError("inconsistent batch sizes in theta_batch")
-        B = sizes.pop()
-    elif n_cells is not None:
-        B = int(n_cells)
-    else:
-        raise ValueError("need n_cells or theta_batch")
-
-    th = {k: v.to(**kw).reshape(1, 1).expand(B, 1) for k, v in p.theta.items()}
-    for k, v in (theta_batch or {}).items():
-        th[k] = torch.as_tensor(np.asarray(v, dtype=np.float64), **kw).reshape(B, 1)
+    th = cell_theta(p, theta_batch, n_cells, kw)
+    B = th["l_p"].shape[0]
 
     tstops_in = kwargs.pop("tstops", None)
     tdiscon_in = kwargs.pop("tdiscon", None)
@@ -84,9 +77,7 @@ def batch_simulate(p: Model,
         value = torch.as_tensor(np.asarray(value_batch, dtype=np.float64), **kw)
     value = torch.as_tensor(value, **kw).expand(B).contiguous()
 
-    soc0 = torch.as_tensor(np.asarray(p.opts.SOC if SOC is None else SOC,
-                                      dtype=np.float64), **kw)
-    soc0 = soc0.expand(B).contiguous()
+    soc0 = cell_values(p.opts.SOC if SOC is None else SOC, B, kw)
 
     parts = []
     if tstops_in is not None:
@@ -100,12 +91,39 @@ def batch_simulate(p: Model,
     tstops = torch.cat(parts, dim=-1) if parts else None
 
     with torch.no_grad():
-        y_start = initial_guess(soc0, th, p.cfg)
+        if y_start is None:
+            y_start = initial_guess(soc0, th, p.cfg)
+        else:
+            y_start = torch.as_tensor(y_start, **kw).reshape(B, -1)
         plan = get_plan(p.cfg, p.theta_floats(), route)
         return run_once(y_start=y_start, soc0=soc0, value=value, tf=tf, th=th,
                         bounds=bounds, cfg=p.cfg, spec=spec, opts=opts,
                         jac_plan=plan, is_rest=is_rest,
                         is_temperature_hold=is_th, tstops=tstops)
+
+
+def cell_theta(p: Model, theta_batch: Optional[dict], n_cells: Optional[int],
+               kw: dict) -> dict:
+    """θ of a batch as (B, 1) tensors: `theta_batch`'s entries (a leading
+    cells axis each) over the model's, or the model's for `n_cells`."""
+    if theta_batch:
+        sizes = {int(np.shape(v)[0]) for v in theta_batch.values()}
+        if len(sizes) != 1:
+            raise ValueError("inconsistent batch sizes in theta_batch")
+        B = sizes.pop()
+    elif n_cells is not None:
+        B = int(n_cells)
+    else:
+        raise ValueError("need n_cells or theta_batch")
+    th = {k: v.to(**kw).reshape(1, 1).expand(B, 1) for k, v in p.theta.items()}
+    for k, v in (theta_batch or {}).items():
+        th[k] = torch.as_tensor(np.asarray(v, dtype=np.float64), **kw).reshape(B, 1)
+    return th
+
+
+def cell_values(v, B: int, kw: dict):
+    """A number or (B,) array as a (B,) tensor."""
+    return torch.as_tensor(np.asarray(v, dtype=np.float64), **kw).expand(B).contiguous()
 
 
 def _stop_times(ts, kw):

@@ -5,7 +5,7 @@ from __future__ import annotations
 
 import torch
 
-from .residuals import ModelConfig, check_supported
+from .residuals import ModelConfig
 
 
 def initial_guess(SOC, th, cfg: ModelConfig):
@@ -15,7 +15,6 @@ def initial_guess(SOC, th, cfg: ModelConfig):
     Differential states at equilibrium values; algebraic states at their
     zero-current solution (Φ_s = OCV, Φ_e = 0, j = 0, I = 0).
     """
-    check_supported(cfg)
     num, L = cfg.numerics, cfg.layout
     SOC = SOC.reshape(-1, 1)
 
@@ -33,6 +32,9 @@ def initial_guess(SOC, th, cfg: ModelConfig):
     y[:, L.sl("c_e")] = th["c_e0"]
     y[:, L.sl("c_s_avg", "p")] = c_s_p
     y[:, L.sl("c_s_avg", "n")] = c_s_n
+    if num.temperature:
+        # the state carries T − T_amb (see residuals.build_auxiliary)
+        y[:, L.sl("T")] = th["T0"] - th["T_amb"]
     if num.aging == "SEI":
         y[:, L.sl("SOH")] = 1.0
         # film and j_s stay 0

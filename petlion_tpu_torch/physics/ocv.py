@@ -17,6 +17,22 @@ def _sqrt_relu(x, minval=0.0):
     return torch.sqrt(torch.maximum(x, torch.full_like(x, minval)))
 
 
+def ipow(x, k: int):
+    """x**k for an integer k ≥ 1 by binary exponentiation, in the order of
+    JAX's integer_pow (x³ = x·x², x¹⁰ = x²·x⁸, ...). The entropy
+    coefficients (dU/dT) use it: their polynomials cancel to 1e-4 of their
+    terms, so each power's rounding must be the JAX package's for the heat
+    sources to agree to 1e-12. (dU/dT enters only the thermal model.)"""
+    acc = None
+    while k > 0:
+        if k & 1:
+            acc = x if acc is None else acc * x
+        k >>= 1
+        if k > 0:
+            x = x * x
+    return acc
+
+
 def _temp_correct(U, dUdT, T):
     return U + torch.where(T == T_REF, torch.zeros_like(U), dUdT * (T - T_REF))
 
@@ -32,9 +48,9 @@ def OCV_LCO(theta_p, T, th=None):
     )
     dUdT = -0.001 * (
         (0.199521039 - 0.928373822 * x + 1.364550689000003 * x**2
-         - 0.6115448939999998 * x**3)
+         - 0.6115448939999998 * ipow(x, 3))
         / (1.0 - 5.661479886999997 * x + 11.47636191 * x**2
-           - 9.82431213599998 * x**3 + 3.048755063 * x**4)
+           - 9.82431213599998 * ipow(x, 3) + 3.048755063 * ipow(x, 4))
     )
     return _temp_correct(U, dUdT, T), dUdT
 
@@ -47,11 +63,13 @@ def OCV_LiC6(theta_n, T, th=None):
          + 0.2808 * torch.exp(0.9 - 15.0 * x)
          - 0.7984 * torch.exp(0.4465 * x - 0.4108))
     num = (0.005269056 + 3.299265709 * x - 91.79325798 * x**2
-           + 1004.911008 * x**3 - 5812.278127 * x**4 + 19329.7549 * x**5
-           - 37147.8947 * x**6 + 38379.18127 * x**7 - 16515.05308 * x**8)
-    den = (1.0 - 48.09287227 * x + 1017.234804 * x**2 - 10481.80419 * x**3
-           + 59431.3 * x**4 - 195881.6488 * x**5 + 374577.3152 * x**6
-           - 385821.1607 * x**7 + 165705.8597 * x**8)
+           + 1004.911008 * ipow(x, 3) - 5812.278127 * ipow(x, 4)
+           + 19329.7549 * ipow(x, 5) - 37147.8947 * ipow(x, 6)
+           + 38379.18127 * ipow(x, 7) - 16515.05308 * ipow(x, 8))
+    den = (1.0 - 48.09287227 * x + 1017.234804 * x**2 - 10481.80419 * ipow(x, 3)
+           + 59431.3 * ipow(x, 4) - 195881.6488 * ipow(x, 5)
+           + 374577.3152 * ipow(x, 6) - 385821.1607 * ipow(x, 7)
+           + 165705.8597 * ipow(x, 8))
     dUdT = 0.001 * num / den
     return _temp_correct(U, dUdT, T), dUdT
 

@@ -9,11 +9,11 @@ assembly is written as flux-difference stencils, the same arithmetic as the
 JAX package, row for row. The last DAE row (the control row) is left at 0;
 ``solver.control`` fills it.
 
-Every isothermal variant of the JAX package is implemented: Fickian
-radial diffusion by finite differences or Chebyshev spectral collocation,
-the quadratic and polynomial (Q-state) particle approximations, SEI and
-stress (loss of active material) aging, and the lithium-foil half cell.
-The thermal model (``temperature=True``) raises ``NotImplementedError``.
+Every variant of the JAX package is implemented: Fickian radial diffusion
+by finite differences or Chebyshev spectral collocation, the quadratic and
+polynomial (Q-state) particle approximations, SEI and stress (loss of
+active material) aging, the lithium-foil half cell, and the 1D thermal
+model (``temperature=True``), whose state carries T − T_amb.
 """
 
 from __future__ import annotations
@@ -45,15 +45,6 @@ class ModelConfig:
     @property
     def half_cell(self) -> bool:
         return self.numerics.anode == "Li_metal"
-
-
-def check_supported(cfg: ModelConfig):
-    """Raise for the physics this package does not implement yet: the
-    thermal model."""
-    if cfg.numerics.temperature:
-        raise NotImplementedError(
-            "temperature=True (thermal model) is not ported yet; pass "
-            "temperature=False")
 
 
 # ---------------------------------------------------------------------------
@@ -92,6 +83,16 @@ def cell_widths_psn(N: Discretizations, th, half_cell: bool = False):
     if not half_cell:
         parts.append((th["l_n"] / N.n).expand(B, N.n))
     return torch.cat(parts, dim=-1)
+
+
+def cell_widths_thermal(N: Discretizations, th, half_cell: bool = False):
+    """Per-CV widths over the thermal grid [m], (B, n): (a,p,s,n,z) for a
+    full cell; (a,p,s,z) for the half cell, where the lithium foil is a
+    boundary heat source at the s|z interface."""
+    B = th["l_p"].shape[0]
+    names = ("a", "p", "s") + (() if half_cell else ("n",)) + ("z",)
+    return torch.cat([(th["l_" + k] / getattr(N, k)).expand(B, getattr(N, k))
+                      for k in names], dim=-1)
 
 
 def edge_interp(x, h):
@@ -210,7 +211,6 @@ def _radial_operators(n_r: int, device: torch.device, dtype: torch.dtype):
 
 def build_auxiliary(t, y, th, cfg: ModelConfig):
     """Derived fields needed by the residual kernels."""
-    check_supported(cfg)
     N, num, L = cfg.N, cfg.numerics, cfg.layout
     B = y.shape[0]
 
@@ -220,11 +220,19 @@ def build_auxiliary(t, y, th, cfg: ModelConfig):
     Phi_e = L.get(y, "Phi_e")
     Phi_s = L.get(y, "Phi_s")
 
-    # isothermal: T ≡ T0 over (a,p,s,n,z); a half cell has no anode CVs
+    # temperature over (a,p,s,n,z); a half cell has no anode CVs. The state
+    # carries the offset T − T_amb: in float32, ulp(313 K) ≈ 3e-5 K would
+    # swamp the mK gradients the thermal stencils and the dT hold depend on.
+    # Absolute T is rebuilt here for the physical consumers (Arrhenius
+    # factors, kinetics, heat sources); _res_T works on the offset.
     n_eff = 0 if cfg.half_cell else N.n
-    n_all = N.a + N.p + N.s + n_eff + N.z
-    T_off = torch.zeros((B, n_all), dtype=y.dtype, device=y.device)
-    T_full = th["T0"].expand(B, n_all)
+    if num.temperature:
+        T_off = L.get(y, "T")
+        T_full = T_off + th["T_amb"]
+    else:
+        n_all = N.a + N.p + N.s + n_eff + N.z
+        T_off = torch.zeros((B, n_all), dtype=y.dtype, device=y.device)
+        T_full = th["T0"].expand(B, n_all)
     T_p = T_full[:, N.a:N.a + N.p]
     T_s = T_full[:, N.a + N.p:N.a + N.p + N.s]
     T_n = T_full[:, N.a + N.p + N.s:N.a + N.p + N.s + n_eff]
@@ -681,6 +689,136 @@ def _res_Phi_s(aux, th, cfg: ModelConfig):
     ], dim=-1)
 
 
+def _res_T(aux, y, yp, th, cfg: ModelConfig):
+    """1D thermal model over (a,p,s,n,z). Conduction and the ambient
+    convection act on the state's offset T − T_amb (exact gradients in
+    float32); the heat sources use absolute T from `aux`.
+
+    Half cell: the grid is (a,p,s,z); the foil enters as the interfacial
+    heat F·j_foil·η_foil = −I_density·η_foil [W/m²] at the s|z face,
+    injected into the first z CV."""
+    N, L = cfg.N, cfg.layout
+    hc = cfg.half_cell
+    T = aux["T_off"]
+    B = T.shape[0]
+    h = cell_widths_thermal(N, th, hc)
+    names = ("a", "p", "s") + (() if hc else ("n",)) + ("z",)
+    lam_cells = torch.cat([th["lam_" + k].expand(B, getattr(N, k))
+                           for k in names], dim=-1)
+    rho_cp = torch.cat([(th["rho_" + k] * th["Cp_" + k]).expand(B, getattr(N, k))
+                        for k in names], dim=-1)
+
+    flux = edge_interp(lam_cells, h) * edge_grad(T, h)
+    conduction = flux_divergence(flux, h)
+
+    Q_rev, Q_rxn, Q_ohm = _heat_generation(aux, th, cfg)
+    if hc:
+        # foil heat into the first z CV: η_foil = −Φ_e(foil face),
+        # j_foil = −I_density/F, so q = F·j_foil·η_foil ≥ 0
+        eta_foil = -aux["Phi_e"][:, -1:]
+        i_z0 = N.a + N.p + N.s
+        q = -aux["I_density"] * eta_foil / h[:, i_z0:i_z0 + 1]
+        Q_rxn = torch.cat([Q_rxn[:, :i_z0], Q_rxn[:, i_z0:i_z0 + 1] + q,
+                           Q_rxn[:, i_z0 + 1:]], dim=-1)
+
+    # Robin ends: h_cell·(T_amb − T) = −h_cell·T_offset, exact in offset form
+    z = _zeros(T, T.shape[1] - 2)
+    bc = torch.cat([-th["h_cell"] * T[:, :1] / h[:, :1], z,
+                    -th["h_cell"] * T[:, -1:] / h[:, -1:]], dim=-1)
+
+    rhs = (conduction + Q_rev + Q_rxn + Q_ohm + bc) / rho_cp
+    return rhs - yp[:, L.sl("T")]
+
+
+def _heat_generation(aux, th, cfg: ModelConfig):
+    """Q_rev, Q_rxn, Q_ohm over the full thermal grid, each (B, n)."""
+    N = cfg.N
+    hc = cfg.half_cell
+    j_tot = aux["j_total"]
+    T_p, T_s, T_n = aux["T_p"], aux["T_s"], aux["T_n"]
+    c_e = aux["c_e"]
+    Phi_s, Phi_e = aux["Phi_s"], aux["Phi_e"]
+    K_eff = aux["K_eff"]
+
+    h_p = th["l_p"] / N.p
+    h_s = th["l_s"] / N.s
+    h_n = th["l_n"] / N.n
+
+    # one-sided ends, central interior, interface-aware differences at the
+    # section boundaries; each end value is (B, 1)
+    def fdl(x, hh):
+        return (-3.0 * x[:, :1] + 4.0 * x[:, 1:2] - x[:, 2:3]) / (2.0 * hh)
+
+    def fdr(x, hh):
+        return (3.0 * x[:, -1:] - 4.0 * x[:, -2:-1] + x[:, -3:-2]) / (2.0 * hh)
+
+    def central(x, hh):
+        return (x[:, 2:] - x[:, :-2]) / (2.0 * hh)
+
+    def acd_right(x_l, h_l, x_r, h_r):
+        return 2.0 * (x_r[:, :1] - x_l[:, -2:-1]) / (3.0 * h_l + h_r)
+
+    def acd_left(x_l, h_l, x_r, h_r):
+        return 2.0 * (x_r[:, 1:2] - x_l[:, -1:]) / (h_l + 3.0 * h_r)
+
+    def section_derivs(x_p, x_s, x_n):
+        """d/dx per section; a half cell has no n section, and the
+        separator's right end (the foil face) is one-sided."""
+        d_p = torch.cat([fdl(x_p, h_p), central(x_p, h_p),
+                         acd_right(x_p, h_p, x_s, h_s)], dim=-1)
+        if hc:
+            d_s = torch.cat([acd_left(x_p, h_p, x_s, h_s), central(x_s, h_s),
+                             fdr(x_s, h_s)], dim=-1)
+            return d_p, d_s, x_n[:, :0]
+        d_s = torch.cat([acd_left(x_p, h_p, x_s, h_s), central(x_s, h_s),
+                         acd_right(x_s, h_s, x_n, h_n)], dim=-1)
+        d_n = torch.cat([acd_left(x_s, h_s, x_n, h_n), central(x_n, h_n),
+                         fdr(x_n, h_n)], dim=-1)
+        return d_p, d_s, d_n
+
+    def electrode_deriv(x, hh):
+        return torch.cat([fdl(x, hh), central(x, hh), fdr(x, hh)], dim=-1)
+
+    Phi_s_p, Phi_s_n = Phi_s[:, :N.p], Phi_s[:, N.p:]
+    dPhi_s_p = electrode_deriv(Phi_s_p, h_p)
+    dPhi_s_n = Phi_s_n if hc else electrode_deriv(Phi_s_n, h_n)
+
+    ps, pn = N.p, N.p + N.s
+    dPhi_e_p, dPhi_e_s, dPhi_e_n = section_derivs(
+        Phi_e[:, :ps], Phi_e[:, ps:pn], Phi_e[:, pn:])
+    c_e_p, c_e_s, c_e_n = c_e[:, :ps], c_e[:, ps:pn], c_e[:, pn:]
+    dc_e_p, dc_e_s, dc_e_n = section_derivs(c_e_p, c_e_s, c_e_n)
+
+    j_p, j_n = j_tot[:, :N.p], j_tot[:, N.p:]
+    Q_rev_p = F * aux["a_p"] * j_p * T_p * aux["dUdT_p"]
+    Q_rev_n = F * aux["a_n"] * j_n * T_n * aux["dUdT_n"]
+    Q_rxn_p = F * aux["a_p"] * j_p * aux["eta_p"]
+    Q_rxn_n = F * aux["a_n"] * j_n * aux["eta_n"]
+
+    nu_p, nu_s, nu_n = aux["nu"]
+    K_p, K_s, K_n = K_eff[:, :ps], K_eff[:, ps:pn], K_eff[:, pn:]
+    tp = 1.0 - th["t_plus"]
+    sig_p, sig_n = aux["sigma_eff_p"], aux["sigma_eff_n"]
+    Q_ohm_p = (K_p * dPhi_e_p**2
+               + 2.0 * R * K_p * T_p * tp * nu_p / F * (dc_e_p / c_e_p) * dPhi_e_p
+               + sig_p * dPhi_s_p**2)
+    Q_ohm_s = (K_s * dPhi_e_s**2
+               + 2.0 * R * K_s * T_s * tp * nu_s / F * (dc_e_s / c_e_s) * dPhi_e_s)
+    Q_ohm_n = (K_n * dPhi_e_n**2
+               + 2.0 * R * K_n * T_n * tp * nu_n / F * (dc_e_n / c_e_n) * dPhi_e_n
+               + sig_n * dPhi_s_n**2)
+
+    B = c_e.shape[0]
+    I2 = aux["I_density"] ** 2
+    za, zs, zz = _zeros(c_e, N.a), _zeros(c_e, N.s), _zeros(c_e, N.z)
+    Q_rev = torch.cat([za, Q_rev_p, zs, Q_rev_n, zz], dim=-1)
+    Q_rxn = torch.cat([za, Q_rxn_p, zs, Q_rxn_n, zz], dim=-1)
+    Q_ohm = torch.cat([(I2 / th["sigma_a"]).expand(B, N.a),
+                       Q_ohm_p, Q_ohm_s, Q_ohm_n,
+                       (I2 / th["sigma_z"]).expand(B, N.z)], dim=-1)
+    return Q_rev, Q_rxn, Q_ohm
+
+
 # ---------------------------------------------------------------------------
 # assembled residual
 # ---------------------------------------------------------------------------
@@ -691,6 +829,8 @@ def residual_core(t, y, yp, th, cfg: ModelConfig):
     num = cfg.numerics
     aux = build_auxiliary(t, y, th, cfg)
     parts = [_res_c_e(aux, yp, th, cfg), _res_c_s_avg(aux, y, yp, th, cfg)]
+    if num.temperature:
+        parts.append(_res_T(aux, y, yp, th, cfg))
     if num.aging == "SEI":
         parts.append(_res_film(aux, yp, th, cfg))
         parts.append(_res_SOH(aux, yp, th, cfg))

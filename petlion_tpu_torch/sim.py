@@ -30,12 +30,11 @@ from .constants import FARADAY
 from .layout import StateLayout
 from .ops.plan import get_plan
 from .physics.initial_guess import initial_guess
-from .physics.residuals import (ModelConfig, active_material, calc_I1C,
-                                check_supported)
+from .physics.residuals import ModelConfig, active_material, calc_I1C
 from .solution import Solution, exit_reason_string
 from .solver import control as ctrl
 from .solver import events
-from .solver.run import run_once
+from .solver.run import absolute_T, run_once
 
 _OPT_KEYS = ("outputs", "abstol", "abstol_T", "reltol", "abstol_init",
              "reltol_init", "maxiters", "check_bounds", "reinit", "verbose",
@@ -193,7 +192,6 @@ def make_model(theta: dict, bounds: Bounds, opts: SimOptions,
                N: Discretizations, numerics: Numerics, *, device,
                dtype) -> Model:
     cfg = ModelConfig.build(N, numerics)
-    check_supported(cfg)
     dev = resolve_device(device, dtype)
     th = {k: torch.tensor(float(v), dtype=dtype, device=dev)
           for k, v in theta.items()}
@@ -247,8 +245,8 @@ def _build_control(p: Model, sol: Optional[Solution], kwargs):
     ``solver/control.py``), "rest" (I and P; I = 0 turns the bound checks
     off) or "hold" (the previous run's last value) for I/V/P/η_p; the
     dc_s_p_*/dc_s_n_*/dc_e_* derivative holds; and `res` as `(value, f)` or
-    `f`. The dT/T holds need the thermal model, which the port does not
-    have yet."""
+    `f`; and the thermal model's dT (a rate of the mean temperature: "hold"
+    for 0, a number or a function) and T="hold"."""
     given = [k for k in _METHOD_KEYS if k in kwargs]
     if len(given) != 1:
         raise ValueError(
@@ -256,7 +254,7 @@ def _build_control(p: Model, sol: Optional[Solution], kwargs):
     name = given[0]
     inp = kwargs.pop(name)
     L = p.cfg.layout
-    is_rest = False
+    is_rest = is_temperature_hold = False
     value = 0.0
 
     if name in ("I", "V", "P", "eta_p"):
@@ -281,9 +279,24 @@ def _build_control(p: Model, sol: Optional[Solution], kwargs):
             spec = ctrl.ControlSpec(name)
             value = float(inp)
     elif name in ("dT", "T"):
-        raise NotImplementedError(
-            f"{name}= holds the cell temperature and needs the thermal model "
-            f"(temperature=True), which the port does not have yet")
+        if not p.numerics.temperature:
+            raise ValueError("temperature must be enabled for dT/T control")
+        if name == "T" and inp != "hold":
+            raise ValueError("T only accepts 'hold'; use dT for protocols")
+        is_temperature_hold = True
+        cfg = p.cfg
+
+        def dT_meas(t, y, yp, th):
+            return events._mean_T(cfg.layout.get(yp, "T"), th, cfg)
+
+        if callable(inp):
+            f = ctrl.normalize_func(inp)
+            spec = ctrl.ControlSpec(
+                "res", lambda t, y, yp, th: dT_meas(t, y, yp, th)
+                - ctrl.cell_values(f(t, y, yp, th), y))
+        else:
+            spec = ctrl.ControlSpec("res", dT_meas)
+            value = 0.0 if inp == "hold" else float(inp)
     elif name.startswith("dc_"):
         # derivative hold on the extremal node of the run's starting state,
         # picked per cell (batched cells may hold different nodes)
@@ -314,7 +327,7 @@ def _build_control(p: Model, sol: Optional[Solution], kwargs):
         else:
             f = ctrl.normalize_func(inp)
         spec = ctrl.ControlSpec("res", f)
-    return name, spec, value, is_rest, False
+    return name, spec, value, is_rest, is_temperature_hold
 
 
 def _host(tensors: dict) -> dict:
@@ -393,17 +406,24 @@ def simulate(p: Model,
     continuing = sol is not None and bool(sol)
     if continuing and initial_states is not None:
         raise ValueError("cannot set initial_states and continue a run")
+    thermal = p.numerics.temperature
     if continuing:
-        # the internal carry (equal to Y_final while no model offsets T)
+        # the internal carry (T − T_amb): converting through absolute kelvin
+        # would round the gradients to ulp(313 K) in float32
         y_int = getattr(sol, "_Y_final_int", None)
         y_start = torch.as_tensor(np.asarray(sol.Y_final if y_int is None else y_int),
                                   **kw).reshape(1, -1)
+        if y_int is None and thermal:
+            y_start = absolute_T(y_start, th, p.cfg, -1.0)
         soc0 = torch.full((1,), float(sol.SOC_final), **kw)
         prev_I = L.I(y_start)
         has_prev = torch.ones(1, dtype=torch.bool, device=dev)
         t_offset = float(sol.t[-1]) + 1e-12
     elif initial_states is not None:
+        # external states carry absolute T [K]
         y_start = torch.as_tensor(np.asarray(initial_states), **kw).reshape(1, -1)
+        if thermal:
+            y_start = absolute_T(y_start, th, p.cfg, -1.0)
         soc0 = L.soc_from_state(y_start, th)
         prev_I = L.I(y_start)
         has_prev = torch.ones(1, dtype=torch.bool, device=dev)
@@ -454,38 +474,15 @@ def simulate(p: Model,
                        is_temperature_hold=is_th, prev_I=prev_I,
                        has_prev=has_prev, tstops=stops_dev)
 
-    # the cell's results come off the device in one copy
-    fields = {f"buf_{k}": v[0] for k, v in res.bufs.items()}
-    for k in ("n_saved", "flag", "y0_run", "y_final", "yp_final", "soc_final",
-              "t_final", "n_steps", "n_rejected", "init_converged", "truncated"):
-        fields[k] = getattr(res, k)[0]
-    h = _host(fields)
-
+    out = sol if continuing else Solution()
+    h, meta = append_run(out, res, p, name,
+                         repr(value) if spec.func is None else "function", t_offset)
     if ws_key is not None and ws_key not in p._save_start:
         p._save_start[ws_key] = h["y0_run"][L.N_diff:]
-
-    n_saved = int(h["n_saved"])
-    flag = int(h["flag"])
-    meta = dict(
-        method=name,
-        input_repr=repr(value) if spec.func is None else "function",
-        tspan=(t_offset, t_offset + float(h["t_final"])),
-        flag=flag,
-        exit_reason=exit_reason_string(flag),
-        n_steps=int(h["n_steps"]),
-        n_rejected=int(h["n_rejected"]),
-        init_converged=bool(h["init_converged"]),
-        truncated=bool(h["truncated"]),
-    )
-    out = sol if continuing else Solution()
-    host_bufs = {k[4:]: v for k, v in h.items() if k.startswith("buf_")}
-    out.append_run(host_bufs, n_saved, t_offset, meta, h["y_final"],
-                   h["yp_final"], h["soc_final"])
-    out._Y_final_int = h["y_final"]
     out._outputs = opts.outputs
     if opts.verbose:
         print(out)
-    if flag == -2:
+    if meta["flag"] == -2:
         warnings.warn(f"solver failure in run {name} "
                       f"(init_converged={meta['init_converged']}, "
                       f"steps={meta['n_steps']})")
@@ -497,6 +494,49 @@ def simulate(p: Model,
     if t_grid is not None:
         return out(t_grid, interp_bc=opts.interp_bc)
     return out
+
+
+def append_run(out: Solution, res, p: Model, method: str, input_repr: str,
+               t_offset: float):
+    """Append cell 0 of a run's result to `out` on the host, in one
+    device-to-host copy: its buffers, the run's metadata and the public
+    Y_final (absolute T [K]), with the internal T − T_amb state kept
+    alongside for a lossless continuation. Returns (the host values, the
+    run's metadata)."""
+    fields = {f"buf_{k}": v[0] for k, v in res.bufs.items()}
+    for k in ("n_saved", "flag", "y0_run", "y_final", "yp_final", "soc_final",
+              "t_final", "n_steps", "n_rejected", "init_converged", "truncated"):
+        fields[k] = getattr(res, k)[0]
+    h = _host(fields)
+    flag = int(h["flag"])
+    meta = dict(
+        method=method, input_repr=input_repr,
+        tspan=(t_offset, t_offset + float(h["t_final"])),
+        flag=flag, exit_reason=exit_reason_string(flag),
+        n_steps=int(h["n_steps"]), n_rejected=int(h["n_rejected"]),
+        init_converged=bool(h["init_converged"]), truncated=bool(h["truncated"]))
+    out.append_run({k[4:]: v for k, v in h.items() if k.startswith("buf_")},
+                   int(h["n_saved"]), t_offset, meta, public_y(h["y_final"], p),
+                   h["yp_final"], h["soc_final"])
+    out._Y_final_int = h["y_final"]
+    return h, meta
+
+
+def public_y(y, p: Model) -> np.ndarray:
+    """A host state (N,) in the public convention: absolute T [K]."""
+    if not p.numerics.temperature:
+        return y
+    y = np.array(y)
+    y[p.cfg.layout.sl("T")] += float(p.theta["T_amb"])
+    return y
+
+
+def _mean_T_host(y, p: Model) -> float:
+    """Thickness-weighted mean of the T block of a host state (N,)."""
+    th = {k: torch.tensor([[float(v)]], dtype=torch.float64)
+          for k, v in p.theta.items()}
+    T = torch.as_tensor(np.asarray(y, dtype=np.float64))[None, p.cfg.layout.sl("T")]
+    return float(events._mean_T(T, th, p.cfg)[0])
 
 
 def simulate_cont(sol: Solution, p: Model, tf=None, **kwargs) -> Solution:
@@ -517,17 +557,22 @@ def _state(y, p: Model):
 
 def calc_OCV(y, p: Model):
     """Open-circuit voltages (U_p, U_n) of every cathode and anode CV at the
-    particle-surface stoichiometries of state `y` (N_tot,) or (B, N_tot).
-    Half cell: U_n is the lithium foil's 0 V."""
+    particle-surface stoichiometries of state `y` (N_tot,) or (B, N_tot),
+    in the public convention (absolute T [K], as Solution.Y_final). Half
+    cell: U_n is the lithium foil's 0 V."""
     L, num = p.cfg.layout, p.numerics
     y, th = _state(y, p)
-    T_p = torch.full((p.N.p,), float(th["T0"]), dtype=y.dtype, device=y.device)
+    if num.temperature:
+        # `y` in the public convention: absolute T [K]
+        T_p, T_n = L.get(y, "T", "p"), L.get(y, "T", "n")
+    else:
+        T_p = torch.full((p.N.p,), float(th["T0"]), dtype=y.dtype, device=y.device)
+        T_n = torch.full((p.N.n,), float(th["T0"]), dtype=y.dtype, device=y.device)
     U_p, _ = num.OCV_p(L.c_s_surf(y, "p") / th["c_max_p"], T_p, th)
     if p.cfg.half_cell:
         # the lithium foil's 0 V against Li/Li⁺
         return U_p, torch.zeros(y.shape[:-1] + (1,), dtype=y.dtype,
                                 device=y.device)
-    T_n = torch.full((p.N.n,), float(th["T0"]), dtype=y.dtype, device=y.device)
     U_n, _ = num.OCV_n(L.c_s_surf(y, "n") / th["c_max_n"], T_n, th)
     return U_p, U_n
 

@@ -16,7 +16,7 @@ from typing import NamedTuple
 import torch
 
 from ..config import EXIT_SIMULATING
-from ..physics.residuals import ModelConfig
+from ..physics.residuals import ModelConfig, cell_widths_thermal
 from .control import cell_values
 
 
@@ -42,6 +42,13 @@ class BoundsPrev(NamedTuple):
                           c_e_min=f(-1.0), dfilm=f(-1.0), stop_g=f(-1.0))
 
 
+def _mean_T(T_full, th, cfg: ModelConfig):
+    """Thickness-weighted mean over the thermal grid of `T_full` (B, n),
+    (B,); half cell: the grid is (a,p,s,z)."""
+    w = cell_widths_thermal(cfg.N, th, cfg.half_cell)
+    return torch.sum(T_full * w, dim=-1) / torch.sum(w, dim=-1)
+
+
 def check_stop(t, y, yp, soc, prev: BoundsPrev, flag, bounds: dict, th,
                cfg: ModelConfig, spec_method: str, *, reltol: float,
                tf, check_bounds: bool = True, is_rest: bool = False,
@@ -50,9 +57,8 @@ def check_stop(t, y, yp, soc, prev: BoundsPrev, flag, bounds: dict, th,
 
     `flag` is EXIT_SIMULATING (-1) while running; `bounds` is a dict of (B,)
     tensors (NaN disables: NaN comparisons are False). `is_temperature_hold`
-    turns the temperature bound off; it matters only to the thermal model,
-    which the port does not have yet, and is threaded through as in the JAX
-    package. `stop_fn(t, y, yp, soc, th)` is the user's stop hook, batch-first:
+    turns the temperature bound of the thermal model off.
+    `stop_fn(t, y, yp, soc, th)` is the user's stop hook, batch-first:
     a boolean result fires flag 12 on the accepted step; any other result is
     a signed margin that fires flag 12 where it crosses 0 upward, in the same
     smallest-t_frac arbitration as the built-in bounds."""
@@ -99,9 +105,13 @@ def check_stop(t, y, yp, soc, prev: BoundsPrev, flag, bounds: dict, th,
     state = fire(state, (soc - bounds["SOC_max"] > eps) & (I > 0),
                  prev.SOC, bounds["SOC_max"], soc, 4)
 
-    # isothermal: no temperature bound (the JAX package checks T_max only
-    # with temperature=True)
+    # the mean temperature, rising; the state carries T − T_amb
     T_mean = prev.T
+    if cfg.numerics.temperature and not is_temperature_hold:
+        T_mean = _mean_T(L.get(y, "T"), th, cfg) + th["T_amb"][:, 0]
+        dT_mean = _mean_T(L.get(yp, "T"), th, cfg)
+        state = fire(state, (T_mean - bounds["T_max"] > eps) & (dT_mean > 0),
+                     prev.T, bounds["T_max"], T_mean, 5)
 
     # anode surface concentration; a lithium foil has no saturation
     # concentration, so a half cell has no such bound

@@ -1,6 +1,7 @@
 """Linear-solver pieces for the Newton iterations (counterpart of
 the JAX package's ``solver/linsolve.py``): equilibrated explicit inverses, so every
-solve is one batched matvec.
+solve is one batched matvec, and the refined pivoted LU of float32 thermal
+runs.
 
 Dispatch of the inverse mirrors the JAX package: n ≤ 16 takes the plain
 scalar Gauss-Jordan; larger matrices go to ``ops.gj_kernel.gj_inverse_hot``,
@@ -9,6 +10,8 @@ version for a CPU tensor.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -23,6 +26,14 @@ def _equilibrate(J):
     return Jc / row[..., :, None], row, col
 
 
+class EquilibratedInv(NamedTuple):
+    """Explicit inverse of the row/column-equilibrated matrix, and its
+    scalings: a solve is one batched matvec."""
+    inv: torch.Tensor
+    row: torch.Tensor
+    col: torch.Tensor
+
+
 def equilibrated_inv_factor(J):
     """Row/col-equilibrated explicit inverse of (..., n, n); the scalings
     keep the f32 inverse accurate across the P2D Jacobian's magnitudes."""
@@ -31,9 +42,86 @@ def equilibrated_inv_factor(J):
         inv = gj_inverse(Js)
     else:
         inv = gj_inverse_hot(Js)
-    return (inv, row, col)
+    return EquilibratedInv(inv, row, col)
 
 
 def equilibrated_inv_solve(fac, b):
+    if isinstance(fac, RefinedLU):
+        return refined_lu_solve(fac, b)
     inv, row, col = fac
     return torch.matmul(inv, (b / row)[..., None])[..., 0] / col
+
+
+class RefinedLU(NamedTuple):
+    """Row/column-equilibrated pivoted LU and the matrix itself, so that
+    every solve takes one refinement step x += M⁻¹(b − J x).
+
+    The float32 thermal factorization: with a dT-hold row cond(J) reaches
+    1e14–1e16, where pivot-free elimination loses every digit and the
+    pivoted float32 solve alone leaves Newton at the edge of convergence;
+    the refinement step brings it to ~1e-6 relative. The LU comes from
+    `torch.linalg.lu_factor_ex`, which does not synchronize the host; a
+    cell whose matrix is not finite (LAPACK is not given it: an identity
+    stands in) or whose factorization meets an exact zero pivot (info ≠ 0)
+    gets a NaN factor, so its solves are NaN and its Newton iteration
+    fails, as a singular inverse does."""
+    LU: torch.Tensor
+    pivots: torch.Tensor
+    row: torch.Tensor
+    col: torch.Tensor
+    J: torch.Tensor
+
+
+# pivoted LU factorizations (torch.linalg.lu_factor_ex calls) since the last
+# reset: the float32 thermal route's count beside the kernels' launches
+LU_FACTORS = [0]
+
+
+def refined_lu_factor(J):
+    LU_FACTORS[0] += 1
+    Js, row, col = _equilibrate(J)
+    bad = ~torch.isfinite(Js).all(dim=-1).all(dim=-1)
+    eye = torch.eye(J.shape[-1], dtype=J.dtype, device=J.device)
+    A = torch.where(bad[..., None, None], eye, Js)
+    if A.is_cuda or A.shape[0] == 1 or torch.get_num_threads() == 1:
+        LU, pivots, info = torch.linalg.lu_factor_ex(A)
+    else:
+        # on the CPU with more than one thread, one matrix at a time: the
+        # batched call of PyTorch 2.13.0+cpu (oneMKL 2024.2) never returns
+        # for two or more float32 (351, 351) thermal Newton matrices at
+        # 4 threads, after "oneMKL ERROR: Parameter 6 was incorrect on
+        # entry to SLASWP"; at 1 thread it returns (ROADMAP C)
+        LU, pivots, info = (torch.cat(x) for x in zip(
+            *(torch.linalg.lu_factor_ex(A[b:b + 1]) for b in range(A.shape[0]))))
+    LU = torch.where((bad | (info != 0))[..., None, None],
+                     torch.full_like(LU, float("nan")), LU)
+    return RefinedLU(LU=LU, pivots=pivots, row=row, col=col, J=J)
+
+
+def row_sums_in_column_order(P):
+    """Σ_j P[..., i, j]: each row's products summed pairwise in column
+    order (neighbouring columns first), in the working precision. The
+    Newton matrix's rows are stencils whose neighbouring terms cancel
+    down to the residual, and summed neighbour to neighbour they cancel
+    before they meet the rest of the row. The refined float32 solve then
+    matches the JAX package's (its XLA matvec on the CPU); with the
+    residual from `torch.matmul` (MKL's gemv) it had 5× that error on
+    dT-hold matrices (ROADMAP C.3). Elementwise adds only: the same bits
+    on the CPU and on CUDA, and no TF32."""
+    while P.shape[-1] > 1:
+        if P.shape[-1] % 2:
+            P = torch.nn.functional.pad(P, (0, 1))
+        P = P[..., 0::2] + P[..., 1::2]
+    return P[..., 0]
+
+
+def refined_lu_solve(fac: RefinedLU, b):
+    def base(rhs):
+        x = torch.linalg.lu_solve(fac.LU, fac.pivots, (rhs / fac.row)[..., None])
+        return x[..., 0] / fac.col
+
+    x = base(b)
+    # one refinement step, its residual b − J x in the working precision
+    # (float32 on the LU route, as the JAX package's)
+    r = b - row_sums_in_column_order(fac.J * x[..., None, :])
+    return x + base(r)

@@ -88,7 +88,7 @@ def consistent_init(F: Callable, y0, n_diff: int, data: dict, *,
         y_n, dnorm_n, lu_n = body(y)
         y = _select(live, y_n, y)
         dnorm = torch.where(live, dnorm_n, dnorm)
-        lu = tuple(_select(live, a, b) for a, b in zip(lu_n, lu))
+        lu = type(lu_n)._make(_select(live, a, b) for a, b in zip(lu_n, lu))
         it = it + live.to(it.dtype)
     converged = dnorm < reltol_init
 

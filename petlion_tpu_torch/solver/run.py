@@ -104,12 +104,30 @@ def _record(bufs, idx, write, t, y, yp, soc, th, cfg: ModelConfig, vec_outs):
     V = L.V(y)
     I = L.I(y)
     vals = dict(t=t, V=V, I=I, P=I * calc_I1C(th)[:, 0] * V, SOC=soc)
+    # recorded states carry absolute T [K]; the solver state carries
+    # T − T_amb. YP is a rate, the same in both
+    has_T = cfg.numerics.temperature
     for name in vec_outs:
-        vals[name] = yp if name == "YP" else (y if name == "Y" else L.get(y, name))
+        if name == "YP":
+            vals[name] = yp
+        elif name == "Y":
+            vals[name] = absolute_T(y, th, cfg) if has_T else y
+        elif name == "T":
+            vals[name] = L.get(y, "T") + th["T_amb"]
+        else:
+            vals[name] = L.get(y, name)
     b = torch.arange(idx.shape[0], device=idx.device)
     for name, val in vals.items():
         buf = bufs[name]
         buf[b, idx] = _select(write, val, buf[b, idx])
+
+
+def absolute_T(y, th, cfg: ModelConfig, sign: float = 1.0):
+    """`y` (B, N) with sign·T_amb added to its T states: the solver's
+    T − T_amb state to absolute kelvin, or back with sign = −1."""
+    s = cfg.layout.sl("T")
+    return torch.cat([y[:, :s.start], y[:, s] + sign * th["T_amb"],
+                      y[:, s.stop:]], dim=-1)
 
 
 def initial_current_guess(spec: control.ControlSpec, value, y0, th,
@@ -198,7 +216,12 @@ def run_once(*, y_start, soc0, value, tf, th, bounds: dict,
     y0, yp0 = init.y, init.yp
 
     # ---- integrator setup ---------------------------------------------------
+    # per-component absolute tolerance: opts.abstol_T relaxes the T block,
+    # since one scalar cannot serve concentrations (~1e4) and K offsets
     atol = opts.abstol
+    if opts.abstol_T is not None and cfg.numerics.temperature:
+        atol = torch.full((L.N_tot,), float(opts.abstol), dtype=dtype, device=dev)
+        atol[L.sl("T")] = float(opts.abstol_T)
     if opts.dt0 is not None:
         h0 = torch.full((B,), float(opts.dt0), dtype=y0.dtype, device=dev)
     else:
@@ -374,12 +397,14 @@ def _finish(rs: RunnerState, init, y0, bufs, bounds, th, cfg, opts, vec_outs,
                    - bounds["c_s_n_max"] * c_max_n)
         g_dfilm = (torch.amax(L.get(yp, "film"), dim=-1) - bounds["dfilm_max"]
                    if sei else one)
+        g_T = (events._mean_T(L.get(y, "T"), th, cfg) + th["T_amb"][:, 0]
+               - bounds["T_max"] if cfg.numerics.temperature else one)
         g = torch.stack([
             bounds["V_min"] - L.V(y),                                   # 1
             L.V(y) - bounds["V_max"],                                   # 2
             bounds["SOC_min"] - soc,                                    # 3
             soc - bounds["SOC_max"],                                    # 4
-            one,                                                        # 5
+            g_T,                                                        # 5
             g_c_s_n,                                                    # 6
             L.I(y) - bounds["I_max"],                                   # 7
             bounds["I_min"] - L.I(y),                                   # 8

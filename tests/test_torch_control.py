@@ -231,15 +231,42 @@ def test_initial_states_roundtrip(models):
 
 
 def test_unported_inputs_raise_and_unit_cases(models):
-    """dT/T (the thermal model), jac_reuse and step_control="ida" raise
-    NotImplementedError; ControlSpec refuses an unknown method; a user
-    function's result must be a tensor on the run's device or a number;
-    and initial_current_guess seeds the current as the JAX package's does
-    for every method, fresh and continued (within 1e-15 relative: one
-    rounding of the 1C current apart)."""
+    """The dT and T holds (ported with the thermal model): each package's
+    `_build_control` measures the mean temperature's rate the same way
+    (1e-13) on two thermal states, a dT-hold run from a thermal state keeps
+    the mean temperature within 1e-6 K, and the holds need the thermal
+    model; jac_reuse and step_control="ida" raise NotImplementedError;
+    ControlSpec refuses an unknown method; a user function's result must be
+    a tensor on the run's device or a number; and initial_current_guess
+    seeds the current as the JAX package's does for every method, fresh and
+    continued (within 1e-15 relative: one rounding of the 1C current
+    apart)."""
     pj, p = models
-    for kw, match in ((dict(dT="hold"), "thermal"), (dict(T="hold"), "thermal"),
-                      (dict(I=-1, jac_reuse=4), "jac_reuse"),
+    from petlion_tpu.sim import _build_control as jax_build_control
+    from petlion_tpu_torch.sim import _build_control, _mean_T_host
+    pjt = pt.petlion(pt.LCO, temperature=True)
+    pt_t = ptt.petlion(ptt.LCO, device="cpu", temperature=True)
+    rng = np.random.default_rng(4)
+    yp = rng.standard_normal((2, pt_t.layout.N_tot))
+    th = {k: v.reshape(1, 1).expand(2, 1) for k, v in pt_t.theta.items()}
+    thj = pjt._theta_dev(jnp.float64)
+    for name in ("dT", "T"):
+        _, spec, value, _, is_th = _build_control(pt_t, None, {name: "hold"})
+        _, spec_j, value_j, _, is_th_j = jax_build_control(pjt, None, {name: "hold"})
+        assert (spec.method, value, is_th) == (spec_j.method, value_j, is_th_j) == ("res", 0.0, True)
+        got = spec.func(0.0, torch.zeros(2, 1), torch.as_tensor(yp), th).numpy()
+        for b in range(2):
+            want = float(spec_j.func(0.0, None, jnp.asarray(yp[b]), thj))
+            np.testing.assert_allclose(got[b], want, rtol=1e-13)
+        with pytest.raises(ValueError, match="temperature"):
+            ptt.simulate(p, 10.0, SOC=0.5, **{name: "hold"})
+    sol = ptt.simulate(pt_t, 20.0, I=4, SOC=0.2, outputs=("t", "V", "Y"))
+    T0 = _mean_T_host(sol.Y_final, pt_t)
+    sol = ptt.simulate_cont(sol, pt_t, 10.0, dT="hold")
+    assert sol.results[-1].method == "dT" and sol.final_exit_reason() == "Final time reached"
+    T_run = [_mean_T_host(y, pt_t) for y in sol.arrays["Y"][sol.results[-1].run_index]]
+    assert max(abs(T - T0) for T in T_run) < 1e-6 and T0 > 298.2
+    for kw, match in ((dict(I=-1, jac_reuse=4), "jac_reuse"),
                       (dict(I=-1, step_control="ida"), "ida")):
         with pytest.raises(NotImplementedError, match=match):
             ptt.simulate(p, 10.0, SOC=0.5, **kw)

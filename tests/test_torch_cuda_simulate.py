@@ -155,3 +155,72 @@ def test_variant_on_card_matches_cpu(chem, kw, I, soc, core):
                                    rtol=1e-9, atol=1e-9 * float(c.bufs[k].abs().max()))
     yg, yc = g.y_final.cpu().numpy(), c.y_final.numpy()
     assert np.max(np.abs(yg - yc) / (1 + np.abs(yc))) < 1e-9
+
+
+@pytest.mark.parametrize("chem", ["LCO", "NMC_LGM50"])
+def test_thermal_on_card_matches_cpu(chem):
+    """A thermal cell (float64; LCO with temperature=True at 4C, and
+    NMC_LGM50 at its default at 1C) charged for 60 s, then its mean
+    temperature held for 30 s: the card's runs (K1 at the 121-state core)
+    take the CPU's steps and equal its V (relative) and Y_final (kelvin, of
+    1 + |Y|) to 1e-7. The dT-hold matrix (cond near 1e16) turns any other
+    order of the arithmetic into a gap in V: on the CPU the two routes' plain
+    versions (two elimination orders) part by 3.2e-9 of V for LCO and
+    1.24e-7 for NMC_LGM50, and the card lay 1.05e-8 of V from the CPU for
+    LCO, so LCO's V is held to 3e-8. chip_smoke.py's path 9 holds the
+    golden flow's card = CPU to 1e-9 V."""
+    _need_card()
+    sols = {}
+    for dev in ("cpu", "cuda"):
+        kw = dict(temperature=True) if chem == "LCO" else {}
+        p = ptt.petlion(getattr(ptt, chem), device=dev, dtype=torch.float64, **kw)
+        gk.reset_launch_counts()
+        sol = ptt.simulate(p, 60.0, I=4 if chem == "LCO" else 1, SOC=0.2)
+        sol = ptt.simulate_cont(sol, p, 30.0, dT="hold")
+        if dev == "cuda":
+            assert gk.LAUNCHES_BY_N["gj_inverse"].get(121, 0) > 0
+        sols[dev] = sol
+    c, g = sols["cpu"], sols["cuda"]
+    assert g.exit_reasons() == c.exit_reasons() == ["Final time reached"] * 2
+    assert [r.n_steps for r in g.results] == [r.n_steps for r in c.results]
+    np.testing.assert_allclose(g.V, c.V, rtol=3e-8 if chem == "LCO" else 1e-7)
+    assert np.max(np.abs(g.Y_final - c.Y_final) / (1 + np.abs(c.Y_final))) < 1e-7
+
+
+def test_thermal_float32_takes_the_lu_route_on_card():
+    """Two thermal cells in float32 on the card, 60 s at 1C: the Newton
+    matrices go through the pivoted LU (no K1 launch at the 121-state
+    core), every cell reaches tf, V within 2 mV of the float64 CPU run."""
+    _need_card()
+    from petlion_tpu_torch.solver import linsolve
+    kw = dict(I=-1.0, SOC=1.0, theta_batch={"D_sp": np.array([1e-14, 1.05e-14])},
+              abstol=5e-4, reltol=1e-3)
+    p = ptt.petlion(ptt.LCO, device="cuda", dtype=torch.float32, temperature=True)
+    gk.reset_launch_counts()
+    linsolve.LU_FACTORS[0] = 0
+    r = ptt.batch_simulate(p, 60.0, **kw)
+    assert linsolve.LU_FACTORS[0] > 0
+    assert gk.LAUNCHES_BY_N["gj_inverse"].get(121, 0) == 0
+    ref = ptt.batch_simulate(ptt.petlion(ptt.LCO, device="cpu", temperature=True), 60.0, **kw)
+    assert r.flag.tolist() == ref.flag.tolist() == [0, 0]
+    L = p.layout
+    np.testing.assert_allclose(L.V(r.y_final).double().cpu().numpy(),
+                               L.V(ref.y_final).numpy(), atol=2e-3)
+
+
+def test_batch_protocol_on_card_matches_cpu():
+    """The CC-CV protocol of three cells (float64): the card's per-segment
+    results equal the CPU's (flags, steps, t_final and y_final to 1e-9)."""
+    _need_card()
+    segs = [dict(I=2, V_max=4.1, SOC_max=1.0), dict(V="hold", SOC_max=1.0)]
+    tb = {"D_sn": 3.9e-14 * np.array([0.6, 1.0, 1.7])}
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = ptt.petlion(ptt.LCO, device=dev, dtype=torch.float64)
+        out[dev] = ptt.batch_protocol(p, segs, SOC=0.0, theta_batch=tb, max_save=4)
+    for c, g in zip(out["cpu"], out["cuda"]):
+        assert g.flag.tolist() == c.flag.tolist()
+        assert g.n_steps.tolist() == c.n_steps.tolist()
+        np.testing.assert_allclose(g.t_final.cpu().numpy(), c.t_final.numpy(), rtol=1e-9)
+        y_g, y_c = g.y_final.cpu().numpy(), c.y_final.numpy()
+        assert np.max(np.abs(y_g - y_c) / (1 + np.abs(y_c))) < 1e-9

@@ -92,8 +92,12 @@ def test_model_from_numpy_round_trips(p_jax):
     for f in dataclasses.fields(p_jax.bounds):
         assert _same(getattr(m.bounds, f.name), getattr(p_jax.bounds, f.name))
     assert m.I1C == pytest.approx(p_jax.I1C, rel=1e-15)
-    with pytest.raises(NotImplementedError):
-        ptt.petlion(ptt.LCO, device="cpu", temperature=True)
+    # the thermal model (ported): the JAX package's layout, 351 states
+    lt, lj = (ptt.petlion(ptt.LCO, device="cpu", temperature=True).cfg.layout,
+              pt.petlion(pt.LCO, temperature=True).cfg.layout)
+    assert lt.N_tot == lj.N_tot == 351
+    assert [(k, e.start, e.length) for k, e in lt._entries] == \
+        [(k, e.start, e.length) for k, e in lj._entries]
 
 
 def test_main_path_is_the_bench_program():

@@ -124,12 +124,32 @@ Phases, each of which must pass (any failure exits non-zero and prints no
    within 1e-9, K1 launched on the card; then two half cells on the
    full-kernel route (K2 on the cathode particles and the c_e group, none
    for the absent anode; K3), card = CPU within 1e-9.
+13. k1_core101 (after k1_core121): K1 at the 101-state particle-Schur core
+   of path 13(c) in float32 at (1024, 101): random matrices against the
+   plain version, the mirror and a float64 inverse; a subset inverted alone
+   equal bit for bit to the same rows of the batch's inverse; the real
+   cores (8 states tiled to 1024) as accurate as the plain versions; times
+   at (1024, 101) and (64, 101); the T = 16, P = 8 tile's registers and
+   spills.
+14. solver options (after paths 8-10): path 11, path 1 with jac_reuse=6,
+   and path 12, path 1 with step_control="ida", under path 1's checks, with
+   factorizations, attempts and rejections per cell beside path 1's and a
+   warm wall each.
+15. dense routes (path 13), one cold run each: the golden discharge of one
+   float64 cell with fast_solver=False against path 3's fast route (rtol
+   1e-10 on t, 1e-8 on V), and 64 float32 cells of path 1 through
+   batch_simulate(fast_solver=False), run_once(linear_solver=
+   make_schur_solver(layout)) (K1 at n = 101) and run_once(jac_plan=
+   get_plan(..., use_schur=False)), under path 1's checks, with the peak
+   device memory of each.
 
 The line before the last is the kernels' JSON record (one entry per kernel;
 `launches` is the count of the paths that run it: path 1, simulate, tstops,
-gitt and cccv for K1, path 2 for K2 and K3; `gj_inverse_n92` is K1 at path
-7's 92-state core, with the launches at n = 92 on path 7); the last line is
-{"ok": true, "device": {...}}.
+gitt, cccv, the protocol and paths 11-13 (at n = 71) for K1, path 2 for K2
+and K3; `gj_inverse_n92`, `gj_inverse_n121_f64` and `gj_inverse_n101` are
+K1 at the 92-state core of path 7, the thermal core of path 9 and the
+particle-Schur core of path 13(c), each with the launches at that n); the
+last line is {"ok": true, "device": {...}}.
 """
 
 import json
@@ -151,8 +171,8 @@ PEAK_FP32_FLOP_PER_S = 67e12
 # cycles, at least 60 ms at the H100's 1.98 GHz boost clock
 SPIN_CYCLES = 120_000_000
 ROTATING = 4        # input buffers rotated in the K1 and K3 timings (82 MB)
-# warm runs of paths 1-7 (one each, to keep the script inside its time
-# limit; paths 8 and 9 take three, and main_path.py profiles three a path)
+# warm runs of each path (one, to keep the script inside its time limit;
+# main_path.py profiles three a path)
 EARLY_WARM = 1
 K2_ROTATING = 16    # and in K2's (60-66 MB at either main-path shape)
 
@@ -555,13 +575,19 @@ def phase_k3(Dp, sizes, sei=None):
                 shapes=shapes)
 
 
-def drive_path(mp, p, name, route, oracle, n_cells, needs):
+def drive_path(mp, p, name, route, oracle, n_cells, needs, go=None, **opts):
     """Drive one path once with the launch counts set to 0 just before and
-    read just after; check it; return (launches, result)."""
+    read just after; check it; return (launches, result). `go` runs the
+    path (default: ``mp.run`` of `n_cells` cells on `route` with `opts`)."""
     import numpy as np
     from petlion_tpu_torch.ops import gj_kernel as gk
+    from petlion_tpu_torch.solver import run as runner
+    if go is None:
+        def go():
+            return mp.run(p, seed=0, route=route, n_cells=n_cells, **opts)
     gk.reset_launch_counts()
-    res, wall = mp.run(p, seed=0, route=route, n_cells=n_cells)
+    runner.reset_trip_counts()
+    res, wall = go()
     launches = dict(gk.LAUNCHES)
     flags = res.flag.cpu().numpy()
     steps = res.n_steps.cpu().numpy().astype(float)
@@ -625,7 +651,8 @@ def phase_simulate(card, oracle):
     """Path 3: the golden single-cell flow through `simulate` on the card
     in float64 (default route, K1 for the 71x71 core): discharge, rest,
     interpolation through the native spline, checkpoint and resume, and the
-    float32 discharge. Returns the K1 launches of the phase."""
+    float32 discharge. Returns the K1 launches of the phase and the float64
+    discharge's (t_end, V_end), which path 13(a) is held to."""
     import tempfile
     import numpy as np
     import torch
@@ -716,7 +743,7 @@ def phase_simulate(card, oracle):
     print(f"path 3 (warm, {len(walls)} single-cell float64 discharges): walls {ws} s, "
           f"median {med:.3f} s, spread {spread:.1%}; steps {r.n_steps}, attempts "
           f"{r.n_steps + r.n_rejected} [{card}]")
-    return launches
+    return launches, (t_end, V_end)
 
 
 def phase_tstops(card, oracle, path1):
@@ -1240,12 +1267,172 @@ def phase_k1_core121(cores):
     return record
 
 
+def _reuse_line(res, path1):
+    """Factorizations, attempts and rejections per cell of a run beside
+    path 1's (the run's trip counts are in runner.TRIPS)."""
+    from petlion_tpu_torch.solver import run as runner
+    fac = sum(c.cpu().numpy() for c in runner.TRIPS["cell_factors"])
+    att = (res.n_steps + res.n_rejected).cpu().numpy().astype(float)
+    att1 = (path1.n_steps + path1.n_rejected).cpu().numpy().astype(float)
+    rej, rej1 = (r.n_rejected.cpu().numpy().astype(float) for r in (res, path1))
+    print(f"  {runner.TRIPS['factor_trips']} of {runner.TRIPS['trips']} trips factored the "
+          f"Newton matrix; factorizations/cell mean {fac.mean():.2f} max {fac.max()}; "
+          f"attempts/cell mean {att.mean():.2f} max {att.max():.0f} (path 1: "
+          f"{att1.mean():.2f}, max {att1.max():.0f}); rejections/cell mean {rej.mean():.2f} "
+          f"(path 1: {rej1.mean():.2f})")
+    return fac, att
+
+
+def phase_solver_options(card, oracle, path1, k1_path1):
+    """Paths 11 and 12: path 1's 1024 cells with jac_reuse=6 (each cell
+    factors once per chunk of at most six steps; K1 at n = 71 on the trips
+    on which some cell starts a chunk) and with step_control="ida": every
+    cell flag 0, 1 or 3, cell 0 within 5 s and 8e-3 V of the oracle, K1
+    launched; factorizations per cell (fewer than attempts under reuse),
+    attempts and rejections per cell beside path 1's; one warm wall each.
+    Returns the K1 launches of the two first runs."""
+    import numpy as np
+    from petlion_tpu_torch import main_path as mp
+    p = mp.model(device="cuda")
+    k1 = {}
+    for label, opts in (("path 11 (jac_reuse=6)", mp.REUSE_OPTS),
+                        ("path 12 (step_control='ida')", mp.IDA_OPTS)):
+        launches, res = drive_path(mp, p, label, mp.PATH1, oracle, mp.B_MAIN,
+                                   ("gj_inverse",), **opts)
+        fac, att = _reuse_line(res, path1)
+        k1[label] = launches["gj_inverse"]
+        print(f"  K1 launches {launches['gj_inverse']} (path 1: {k1_path1})")
+        if opts is mp.REUSE_OPTS:
+            check(fac.mean() < att.mean() and fac.max() <= att.max(),
+                  f"{label}: {fac.mean()} factorizations per cell for {att.mean()} attempts")
+        res2, walls, med, spread = mp.warm_walls(p, seed=1, route=mp.PATH1,
+                                                 runs=EARLY_WARM, **opts)
+        check(bool(np.isin(res2.flag.cpu().numpy(), (0, 1, 3)).all()),
+              f"{label} warm run: bad flags")
+        print(f"{label} (warm, {len(walls)} runs of one batch): walls "
+              f"{', '.join(f'{w:.3f}' for w in walls)} s, median {med:.3f} s = "
+              f"{mp.B_MAIN / med:.1f} discharges/s [{card}]")
+    return sum(k1.values())
+
+
+def phase_dense(card, oracle, fast3):
+    """Path 13, the dense routes, one cold run each: (a) the golden
+    `simulate(p, I=-1, SOC=1, fast_solver=False)` of one float64 cell must
+    exit "Below min. SOC" within 1 s of 3600 s, with t_end and V_end within
+    rtol 1e-10 and 1e-8 of path 3's fast route (`fast3`); path 1's first 64
+    cells in float32 (b) through `batch_simulate(fast_solver=False)`, (c)
+    through `run_once(linear_solver=make_schur_solver(layout))`, K1 at the
+    101-state particle-Schur core, and (d) through `run_once(jac_plan=
+    get_plan(..., use_schur=False))`: every cell flag 0, 1 or 3, cell 0
+    within 5 s and 8e-3 V of the oracle, K1 launched (by the initialization
+    at n = 71 on (b) and (d)). Prints the peak device memory of each.
+    Returns the K1 launches at n = 71 and at n = 101."""
+    import torch
+    import petlion_tpu_torch as ptt
+    from petlion_tpu_torch import main_path as mp
+    from petlion_tpu_torch.ops import gj_kernel as gk
+    from petlion_tpu_torch.ops.plan import get_plan
+    from petlion_tpu_torch.ops.structured import make_schur_solver
+
+    p64 = ptt.petlion(ptt.LCO, device="cuda", dtype=torch.float64)
+    gk.reset_launch_counts()
+    sol, wall = mp.run_single(p64, fast_solver=False)
+    t_end, V_end = float(sol.t[-1]), float(sol.V[-1])
+    r = sol.results[-1]
+    by_n = dict(gk.LAUNCHES_BY_N["gj_inverse"])
+    print(f"path 13(a) simulate(fast_solver=False), float64 (first run): {wall:.3f} s, exit "
+          f"{sol.final_exit_reason()!r}, t_end {t_end:.6f} s, V_end {V_end:.9f} V (path 3: "
+          f"{fast3[0]:.6f} s, {fast3[1]:.9f} V; relative gaps {abs(t_end - fast3[0]) / fast3[0]:.2e}, "
+          f"{abs(V_end - fast3[1]) / fast3[1]:.2e}); steps {r.n_steps}, attempts "
+          f"{r.n_steps + r.n_rejected}; K1 by n {by_n}")
+    check(sol.final_exit_reason() == "Below min. SOC", "path 13(a): wrong exit")
+    check(abs(t_end - 3600.0) <= 1.0, f"path 13(a): exit at {t_end} s")
+    check(abs(t_end - fast3[0]) <= 1e-10 * fast3[0], "path 13(a): t_end off the fast route")
+    check(abs(V_end - fast3[1]) <= 1e-8 * fast3[1], "path 13(a): V_end off the fast route")
+    check(by_n.get(71, 0) > 0, "path 13(a) never launched K1")
+    n71 = by_n.get(71, 0)
+
+    p = mp.model(device="cuda")
+    n101 = 0
+    for label, go in (
+            ("path 13(b) batch_simulate(fast_solver=False)",
+             lambda: mp.run(p, seed=0, n_cells=mp.DENSE_B, fast_solver=False)),
+            ("path 13(c) run_once(linear_solver=make_schur_solver)",
+             lambda: mp.run_solver(p, 0, linear_solver=make_schur_solver(p.layout))),
+            ("path 13(d) run_once(jac_plan=get_plan(use_schur=False))",
+             lambda: mp.run_solver(p, 0, jac_plan=get_plan(p.cfg, p.theta_floats(),
+                                                            use_schur=False)))):
+        torch.cuda.reset_peak_memory_stats()
+        drive_path(mp, p, label, None, oracle, mp.DENSE_B, ("gj_inverse",), go=go)
+        by_n = dict(gk.LAUNCHES_BY_N["gj_inverse"])
+        print(f"  K1 by n {by_n}; peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB [{card}]")
+        n71 += by_n.get(71, 0)
+        if "(c)" in label:
+            n101 = by_n.get(101, 0)
+            check(n101 > 0, "path 13(c) never launched K1 at n = 101")
+    return n71, n101
+
+
+def phase_k1_core101(cores):
+    """K1 at path 13(c)'s 101-state particle-Schur core in float32, the
+    T = 16, P = 8 tile: random equilibrated matrices at (1024, 101) against
+    the plain blocked version and the mirror (2e-4) and a float64 inverse
+    (1e-5 of the scale); the inverses of a subset of those matrices equal
+    the same rows of the whole batch's, bit for bit; the real equilibrated
+    cores (8 states tiled to 1024) in float32 as close to float64 as the
+    plain versions (4× plus 1e-5), in float64 against the mirror (1e-8);
+    the time at (1024, 101) and (64, 101) over rotating inputs behind the
+    spin, beside the bound, the plain version and torch.linalg.inv_ex; and
+    the tile's registers and spills from ptxas."""
+    import torch
+    from petlion_tpu_torch.ops import gj_kernel as gk
+    n = 101
+    A = _equilibrated_inputs(1024, n, torch.float32, seed=101)
+    X = gk.gj_inverse_cuda(A)
+    err = float((X - gk.gj_inverse_blocked(A, bs=gk._best_bs(n))).abs().max())
+    err_m = float((X - gk.gj_inverse_inplace(A)).abs().max())
+    X64 = torch.linalg.inv(A.double())
+    err_64 = float(((X.double() - X64).abs() / X64.abs().amax(dim=(-2, -1), keepdim=True)).max())
+    eye = torch.eye(n, dtype=torch.float64, device="cuda")
+    resid = float((A.double() @ X.double() - eye).abs().amax(dim=(-2, -1)).max())
+    idx = torch.arange(5, 1024, 7, device="cuda")
+    same = bool(torch.equal(gk.gj_inverse_cuda(A[idx].contiguous()), X[idx]))
+    print(f"K1 f32 (1024, {n}) random: max|kernel - plain| = {err:.3e}, max|kernel - mirror| "
+          f"= {err_m:.3e}, vs the float64 inverse / scale {err_64:.3e}, max ||AX - I||inf = "
+          f"{resid:.3e}; a subset of {len(idx)} matrices inverted alone equals the same rows "
+          f"of the batch's inverse bit for bit: {same}")
+    check(err <= 2e-4 and err_m <= 2e-4, f"K1 disagrees with plain at (1024, {n})")
+    check(err_64 <= 1e-5 and resid < 1e-3, f"K1 inverse off at (1024, {n})")
+    check(same, "K1's inverse of a matrix depends on the batch around it")
+
+    shape, e = _k1_real_cores(cores, 128)
+    print(f"K1 real particle-Schur cores {shape}: f32 error vs f64 / scale: kernel "
+          f"{e['kernel']:.3e}, mirror {e['mirror']:.3e}, blocked bs=8 {e['b8']:.3e}, "
+          f"plain (bs={gk._best_bs(n)}) {e['best']:.3e}; f64 kernel vs mirror {e['f64']:.3e}")
+    check(e["kernel"] <= 4 * e["mirror"] + 1e-5 and e["kernel"] <= 4 * e["best"] + 1e-5,
+          f"K1 less accurate than plain on the real 101-state cores: {e['kernel']}")
+    check(e["f64"] <= 1e-8, f"K1 float64 disagrees on the real 101-state cores: {e['f64']}")
+
+    shapes = []
+    for B, rot in ((1024, ROTATING), (64, 32)):     # 4 × 41.8 MB; 32 × 2.6 MB
+        shapes.append(dict(shape=[B, n, n], **_k1_timing(B, n, rot, seed=1010 + B)))
+    regs, spill = _ptxas_instance(gk.BUILD_LOGS.get("gj_inverse", ""),
+                                  "gj_inverse_kernelIfLi16ELi8E")
+    print(f"K1 tile T = 16, P = 8 (float), which n = {n} takes: {regs} registers, spill "
+          f"stores/loads {spill} bytes")
+    record = dict(max_abs_err=err, registers=regs,
+                  spill_bytes=None if spill is None else list(spill), shapes=shapes)
+    record.update(shapes[0])
+    return record
+
+
 def phase_protocol(card):
     """Path 8: the JAX suite's 2_cc_cv_protocol, 1024 LCO cells through CC
     (2C to V_max 4.1 V) then CV (V held to SOC 1) in float32 on the default
     route: every cell leaves CC at V_max (flag 2) and CV at SOC_max (flag
     4), its final SOC within 2e-3 of 1, K1 launched at n = 71; the spread of
-    switch times; three warm walls give protocols/s. Returns the K1
+    switch times; a warm wall gives protocols/s. Returns the K1
     launches of the first run."""
     import numpy as np
     from petlion_tpu_torch import main_path as mp
@@ -1280,7 +1467,7 @@ def phase_protocol(card):
           f"attempts/cell CC {att[0].mean():.2f}, CV {att[1].mean():.2f}")
     check(by_n.get(71, 0) > 0, "path 8 never launched K1 at n = 71")
     walls = []
-    for _ in range(mp.WARM_RUNS):
+    for _ in range(EARLY_WARM):
         r2, w = mp.run_protocol(p, seed=1)
         walls.append(w)
     checked(r2, "path 8 warm run")
@@ -1303,7 +1490,7 @@ def phase_thermal(card):
     K3 chain on the 121 core) within twice the CPU's own gap between the two
     routes of the CPU's full-kernel run, the two routes' gap printed on both
     devices. Walls:
-    float32 median of three warm, float64 one warm. Returns (K1 launches at
+    one warm run of each. Returns (K1 launches at
     n = 121 of the float64 run, the float32 run's LU factorizations)."""
     import numpy as np
     import torch
@@ -1342,7 +1529,7 @@ def phase_thermal(card):
     check32(s32, "path 9 float32")
     check(lu32 > 0, "path 9 float32 never took the pivoted LU")
     walls = []
-    for _ in range(mp.WARM_RUNS):
+    for _ in range(EARLY_WARM):
         s, w = mp.run_thermal(p32)
         walls.append(w)
     check32(s, "path 9 float32 warm run")
@@ -1452,12 +1639,14 @@ def main():
         k1_92 = phase_k1_core92([("SEI", D92), ("stress", D91)])
         D121 = newton_matrices(temperature=True, hold_dT=True)[0]
         k1_121 = phase_k1_core121(D121)
+        from petlion_tpu_torch.main_path import particle_schur_cores
+        k1_101 = phase_k1_core101(particle_schur_cores())
         k2 = phase_k2(groups)
         _, Dp92, sizes92, _ = newton_matrices(chemistry=ptt.NMC, aging="SEI")
         k3 = phase_k3(Dp, sizes, (Dp92, sizes92))
         launches, path1 = phase_main(card)
         oracle = np.load(ORACLE)
-        k1_simulate = phase_simulate(card, oracle)
+        k1_simulate, fast3 = phase_simulate(card, oracle)
         k1_tstops = phase_tstops(card, oracle, path1)
         k1_gitt = phase_gitt(card)
         k1_cccv = phase_cccv(card)
@@ -1467,19 +1656,23 @@ def main():
         k1_protocol = phase_protocol(card)
         k1_thermal, lu_thermal = phase_thermal(card)
         lu_batched = phase_thermal_batched(card)
+        k1_options = phase_solver_options(card, oracle, path1,
+                                          launches["path 1"]["gj_inverse"])
+        k1_dense, k1_n101 = phase_dense(card, oracle, fast3)
     except Exception:   # report any phase failure and exit non-zero
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
     k1_launches = (launches["path 1"]["gj_inverse"] + k1_simulate + k1_tstops + k1_gitt
-                   + k1_cccv + k1_protocol)
+                   + k1_cccv + k1_protocol + k1_options + k1_dense)
     print(f"K1 launches: path 1 {launches['path 1']['gj_inverse']}, simulate "
           f"{k1_simulate}, tstops {k1_tstops}, gitt {k1_gitt}, cccv {k1_cccv}, protocol "
           f"(path 8) {k1_protocol}, in all {k1_launches}; path 7 {sei1['gj_inverse']} "
           f"({sei1_by_n['gj_inverse'].get(92, 0)} at n = 92), sei cycling {k1_cycling}, "
           f"variants {k1_variants}; path 7's full-kernel route: K2 {sei2['gj_blocks']}, "
           f"K3 {sei2['dchain']}; path 9 float64 {k1_thermal} at n = 121; pivoted LU "
-          f"factorizations: path 9 float32 {lu_thermal}, path 10's first chunk {lu_batched}")
+          f"factorizations: path 9 float32 {lu_thermal}, path 10's first chunk {lu_batched}; "
+          f"paths 11-12 {k1_options}, path 13 {k1_dense} at n = 71 and {k1_n101} at n = 101")
     print(f"chip_smoke wall: {time.time() - T_START:.1f} s")
     records = [
         {"name": "gj_inverse", "route": "cuda",
@@ -1494,6 +1687,10 @@ def main():
          "source": "petlion_tpu_torch/csrc/gj_inverse.cu",
          "replaces": "petlion_tpu/ops/pallas_gj.py:57",
          "launches": k1_thermal, **k1_121},
+        {"name": "gj_inverse_n101", "route": "cuda",
+         "source": "petlion_tpu_torch/csrc/gj_inverse.cu",
+         "replaces": "petlion_tpu/ops/pallas_gj.py:57",
+         "launches": k1_n101, **k1_101},
         {"name": "gj_blocks", "route": "cuda",
          "source": "petlion_tpu_torch/csrc/gj_blocks.cu",
          "replaces": "petlion_tpu/ops/pallas_gj.py:57",

@@ -82,12 +82,35 @@ suite's configuration (``bench_suite.py``) at its published width:
   ``THERMAL_CHUNK_TF`` = 250 s, each chunk continuing from the last one's
   states and SOC (``batch_simulate(y_start=...)``); the refined pivoted LU.
 
+Three paths drive the solver options, on path 1's model and θ sweep:
+
+* path 11: path 1 with ``jac_reuse=REUSE_K`` (6, the K of the JAX package's
+  test): each cell factors once per chunk of at most six steps (K1 at
+  (1024, 71) on a trip on which some cell starts a chunk), the stale
+  factor damped by cjratio (``solver/run.py``);
+* path 12: path 1 with ``step_control="ida"`` (Sundials' step-growth
+  hysteresis);
+* path 13, the dense routes: (a) ``simulate(p, I=-1, SOC=1,
+  fast_solver=False)`` of one float64 cell (``run_single``); the first
+  ``DENSE_B`` = 64 cells of path 1's batch (b) through ``batch_simulate(...,
+  fast_solver=False)`` (the dense Jacobian, one stacked pass over identity
+  seeds, and the equilibrated pivoted LU), (c) through
+  ``run_once(linear_solver=make_schur_solver(layout))`` (``run_solver``: the
+  particle Schur complement of the dense matrix, its 101-state core through
+  K1) and (d) through ``run_once(jac_plan=get_plan(..., use_schur=False))``
+  (the colored dense matrix and the equilibrated pivoted LU). Each dense
+  Jacobian pass has N·B = 19,264 rows at 64 cells (308k at 1024).
+
+``path10r`` is path 10's first chunk with ``jac_reuse=REUSE_K``, the case
+the JAX package's configuration recommends reuse for (the float32 thermal
+pivoted LU): profiled beside path 10's first chunk in one process.
+
 ``newton_matrices`` builds the Newton matrices of the main path that the
-kernels see, for the tests and ``chip_smoke.py`` to hold the kernels on real
-inputs.
+kernels see, and ``particle_schur_cores`` the 101-state cores of path 13(c),
+for the tests and ``chip_smoke.py`` to hold the kernels on real inputs.
 ``chip_smoke.py`` checks these programs; run as a script,
 
-    python -m petlion_tpu_torch.main_path [path1|...|path9|path10 ...]
+    python -m petlion_tpu_torch.main_path [path1|...|path13|path10r ...]
 
 profiles each named path (path 1 and path 2 by default) on the card: one
 cold run, one warm run under ``torch.profiler`` (CPU and CUDA activities)
@@ -98,9 +121,11 @@ share, and the kernels that take the most device time; for path 5 also the
 outer trips, the trips that ran a re-initialization and their share of the
 wall, and the control-function evaluations per trip; for the float32
 thermal paths (path 9 is profiled in float32) the pivoted LU
-factorizations. ``path10`` first runs all
-``THERMAL_CHUNKS`` chunks once and prints the attempts per cell beside the
-JAX suite's TPU record, then profiles its first chunk.
+factorizations; for every path the trips that factored the Newton matrix,
+the factorizations per cell and the peak device memory. ``path10`` first
+runs all ``THERMAL_CHUNKS`` chunks once and prints the attempts per cell
+beside the JAX suite's TPU record, then profiles its first chunk;
+``path13`` profiles its four runs one after another (path13a ... path13d).
 """
 
 from __future__ import annotations
@@ -115,11 +140,13 @@ import torch
 
 from .chemistry import LCO, NMC
 from .ops import gj_kernel
-from .ops.plan import FULL_KERNEL_ROUTE, Route
-from .parallel.batch import batch_simulate
+from .ops.plan import FULL_KERNEL_ROUTE, Route, get_plan
+from .ops.structured import make_schur_solver
+from .parallel.batch import batch_simulate, cell_theta, cell_values
+from .physics.initial_guess import initial_guess
 from .protocols import batch_protocol, simulate_protocol
 from .sim import Model, petlion, simulate, simulate_cont
-from .solver import linsolve
+from .solver import control, events, linsolve
 from .solver import run as runner
 
 B_MAIN = 1024
@@ -145,6 +172,10 @@ THERMAL_F32_TOL = dict(abstol=5e-4, reltol=1e-3)
 THERMAL_B = 128
 THERMAL_CHUNKS = 16
 THERMAL_CHUNK_TF = 250.0
+REUSE_K = 6
+REUSE_OPTS = dict(jac_reuse=REUSE_K)
+IDA_OPTS = dict(step_control="ida")
+DENSE_B = 64
 KERNEL_SYMBOLS = {"gj_inverse": "gj_inverse_kernel",
                   "gj_blocks": "gj_blocks_kernel", "dchain": "dchain_kernel"}
 
@@ -166,17 +197,44 @@ def theta_batch(seed: int) -> dict:
     return tb
 
 
-def run(p: Model, seed: int, route: Route = PATH1, n_cells: int = B_MAIN):
+def run(p: Model, seed: int, route: Route = PATH1, n_cells: int = B_MAIN, **opts):
     """One batched discharge of the first `n_cells` cells on the card:
     (RunResultDev, wall seconds), the wall ending in a device
-    synchronisation."""
+    synchronisation. `opts` go to ``batch_simulate`` (path 11's
+    ``REUSE_OPTS``, path 12's ``IDA_OPTS``, path 13(b)'s
+    ``fast_solver=False``)."""
     tb = {k: v[:n_cells] for k, v in theta_batch(seed).items()}
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     res = batch_simulate(p, TF, I=-1.0, SOC=1.0, theta_batch=tb,
-                         outputs=("t", "V"), route=route)
+                         outputs=("t", "V"), route=route, **opts)
     torch.cuda.synchronize()
     return res, time.perf_counter() - t0
+
+
+def run_solver(p: Model, seed: int, n_cells: int = DENSE_B, jac_plan=None,
+               linear_solver=None):
+    """Path 13(c, d): path 1's discharge of the first `n_cells` cells
+    through ``run_once`` with `jac_plan` or `linear_solver` (the JAX
+    package's only entry to the ``make_schur_solver`` route):
+    (RunResultDev, wall seconds)."""
+    kw = dict(dtype=p.dtype, device=p.device)
+    tb = {k: v[:n_cells] for k, v in theta_batch(seed).items()}
+    th = cell_theta(p, tb, None, kw)
+    soc0 = cell_values(1.0, n_cells, kw)
+    bounds = {k: cell_values(v, n_cells, kw)
+              for k, v in events.bounds_dict(p.bounds).items()}
+
+    def go():
+        with torch.no_grad():
+            return runner.run_once(
+                y_start=initial_guess(soc0, th, p.cfg), soc0=soc0,
+                value=cell_values(-1.0, n_cells, kw), tf=TF, th=th, bounds=bounds,
+                cfg=p.cfg, spec=control.ControlSpec("I"),
+                opts=p.opts.replace(outputs=("t", "V")), jac_plan=jac_plan,
+                linear_solver=linear_solver)
+    return _timed(go)
+
 
 
 def _timed(fn):
@@ -320,50 +378,41 @@ def run_thermal(p: Model, route: Route | None = None):
 
 
 def run_thermal_batched(p: Model, seed: int, chunks: int = THERMAL_CHUNKS,
-                        n_cells: int = THERMAL_B):
+                        n_cells: int = THERMAL_B, **opts):
     """Path 10: `chunks` chunks of the thermal 1C discharge of `n_cells`
     cells, each from the last one's states and SOC: (list of RunResultDev,
-    wall seconds)."""
+    wall seconds). `opts` go to ``batch_simulate`` (path10r's
+    ``REUSE_OPTS``)."""
     tb = {k: v[:n_cells] for k, v in theta_batch(seed).items()}
 
     def chain():
         out, y, soc = [], None, 1.0
         for _ in range(chunks):
             r = batch_simulate(p, THERMAL_CHUNK_TF, I=-1.0, SOC=soc, theta_batch=tb,
-                               y_start=y, outputs=("t", "V"), **BENCH_OPTS)
+                               y_start=y, outputs=("t", "V"), **BENCH_OPTS, **opts)
             y, soc = r.y_final, r.soc_final.cpu().numpy()
             out.append(r)
         return out
     return _timed(chain)
 
 
-def warm_walls(p: Model, seed: int, route: Route = PATH1, runs: int = WARM_RUNS):
+def warm_walls(p: Model, seed: int, route: Route = PATH1, runs: int = WARM_RUNS,
+               **opts):
     """`runs` runs of one batch in this process: the last run's result, the
     walls, their median and their relative spread (max − min) / median."""
     walls = []
     for _ in range(runs):
-        res, wall = run(p, seed, route)
+        res, wall = run(p, seed, route, **opts)
         walls.append(wall)
     med = statistics.median(walls)
     return res, walls, med, (max(walls) - min(walls)) / med
 
 
-def newton_matrices(n_states: int = 8, seed: int = 0, chemistry=LCO,
-                    hold_dT: bool = False, **options):
-    """Newton matrices of the main path (float64, CPU) at perturbed states
-    with BDF coefficients c0 from 0.05 to 50, as the factorization sees
-    them: (core, permuted, sizes, groups) — the Schur core after the group
-    eliminations (n_states, 71, 71), the same permuted so that the nested
-    levels lead, the level sizes, and the equilibrated particle and c_e
-    group blocks. `chemistry` and `options` pick another model (path 7's:
-    ``chemistry=NMC, aging="SEI"``, a 92-state core; path 9's:
-    ``temperature=True``, a 121-state core, with T offsets of a few K), and
-    `hold_dT` the control row of path 9's CT segment (the mean temperature
-    held), which makes the core nearly singular."""
-    from .ops import structured as st
-    from .ops.plan import get_plan
-    from .physics.initial_guess import initial_guess
-    from .solver import control, linsolve
+def _newton_inputs(n_states, seed, chemistry, hold_dT, options):
+    """The model, its full-kernel plan, and `n_states` perturbed states with
+    BDF coefficients c0 from 0.05 to 50 and the map g(y, data) whose
+    Jacobian is the Newton matrix (float64, CPU)."""
+    from .sim import _build_control
     kw = dict(dtype=torch.float64, device="cpu")
     p = petlion(chemistry, **kw, **options)
     plan = get_plan(p.cfg, p.theta_floats(), FULL_KERNEL_ROUTE)
@@ -385,22 +434,46 @@ def newton_matrices(n_states: int = 8, seed: int = 0, chemistry=LCO,
     data = dict(th, _c0=c0[:, None],
                 _const=torch.as_tensor(1e-3 * rng.standard_normal(y.shape)) - c0[:, None] * y)
     data["_v"] = torch.full((n_states, 1), 0.0 if hold_dT else -1.0, **kw)
-    if hold_dT:
-        from .sim import _build_control
-        spec = _build_control(p, None, {"dT": "hold"})[1]
-    else:
-        spec = control.ControlSpec("I")
+    spec = (_build_control(p, None, {"dT": "hold"})[1] if hold_dT
+            else control.ControlSpec("I"))
 
     def g(yy, d):
         return control.full_residual(spec, d["_v"][:, 0], 0.0, yy,
                                      d["_c0"] * yy + d["_const"], d, p.cfg)
+    return p, plan, y, c0, th, data, g
 
+
+def newton_matrices(n_states: int = 8, seed: int = 0, chemistry=LCO,
+                    hold_dT: bool = False, **options):
+    """Newton matrices of the main path (float64, CPU) at perturbed states
+    with BDF coefficients c0 from 0.05 to 50, as the factorization sees
+    them: (core, permuted, sizes, groups) — the Schur core after the group
+    eliminations (n_states, 71, 71), the same permuted so that the nested
+    levels lead, the level sizes, and the equilibrated particle and c_e
+    group blocks. `chemistry` and `options` pick another model (path 7's:
+    ``chemistry=NMC, aging="SEI"``, a 92-state core; path 9's:
+    ``temperature=True``, a 121-state core, with T offsets of a few K), and
+    `hold_dT` the control row of path 9's CT segment (the mean temperature
+    held), which makes the core nearly singular."""
+    from .ops import structured as st
+    p, plan, y, c0, th, data, g = _newton_inputs(n_states, seed, chemistry, hold_dT,
+                                                 options)
     JS, last = (plan.analytic.compressed(None, y, c0, th, g, data)
                 if plan.analytic is not None else plan.colored.compressed(g, y, data))
     ds = plan.device_specs(y)
     _, D = st.eliminate_groups(JS, last, plan.colored, ds)
     groups = [linsolve._equilibrate(st._extract_A(JS, gt))[0] for gt in ds.groups]
     return D, st.permuted_core(D, ds), ds.sizes, groups
+
+
+def particle_schur_cores(n_states: int = 8, seed: int = 0):
+    """The particle Schur complements D − C A⁻¹ B of dense LCO Newton
+    matrices at `newton_matrices`' states (float64, CPU): the 101-state
+    cores that path 13(c) inverts through K1, (n_states, 101, 101)."""
+    from .ops import structured as st
+    p, plan, y, _, _, data, g = _newton_inputs(n_states, seed, LCO, False, {})
+    J = plan.colored(g, y, data)
+    return st.particle_schur_complement(J, st.make_split(p.layout))[-1]
 
 
 def _device_us(evt):
@@ -413,11 +486,12 @@ def _device_us(evt):
 def _path_run(name: str, p: Model, seed: int):
     """One run of a named path: (steps, rejected attempts) per cell as
     numpy arrays, and the wall."""
-    if name in ("path8", "path10"):
+    if name in ("path8", "path10", "path10r"):
         if name == "path8":
             results, wall = run_protocol(p, seed)
         else:
-            results, wall = run_thermal_batched(p, seed, chunks=1)
+            results, wall = run_thermal_batched(
+                p, seed, chunks=1, **(REUSE_OPTS if name == "path10r" else {}))
         return (sum(r.n_steps for r in results).cpu().numpy(),
                 sum(r.n_rejected for r in results).cpu().numpy(), wall)
     if name == "path9":
@@ -427,14 +501,24 @@ def _path_run(name: str, p: Model, seed: int):
     if name == "path7":
         res, wall = run_sei(p, seed)
         return res.n_steps.cpu().numpy(), res.n_rejected.cpu().numpy(), wall
-    if name in ("path3", "path6"):
-        sol, wall = run_single(p) if name == "path3" else run_cccv(p)
+    if name in ("path3", "path6", "path13a"):
+        sol, wall = (run_cccv(p) if name == "path6"
+                     else run_single(p, fast_solver=name == "path3"))
         return (np.array([sum(r.n_steps for r in sol.results)]),
                 np.array([sum(r.n_rejected for r in sol.results)]), wall)
     if name == "path5":
         res, wall = run_gitt(p, seed, current=_counted_current)
     elif name == "path4":
         res, wall = run_tstops(p, seed)
+    elif name in ("path11", "path12"):
+        res, wall = run(p, seed, **(REUSE_OPTS if name == "path11" else IDA_OPTS))
+    elif name == "path13b":
+        res, wall = run(p, seed, n_cells=DENSE_B, fast_solver=False)
+    elif name == "path13c":
+        res, wall = run_solver(p, seed, linear_solver=make_schur_solver(p.layout))
+    elif name == "path13d":
+        res, wall = run_solver(p, seed, jac_plan=get_plan(p.cfg, p.theta_floats(),
+                                                          use_schur=False))
     else:
         res, wall = run(p, seed, route=PATHS[name])
     return res.n_steps.cpu().numpy(), res.n_rejected.cpu().numpy(), wall
@@ -455,13 +539,15 @@ def profile(p: Model, name: str, card: str):
     runner.reset_trip_counts()
     linsolve.LU_FACTORS[0] = 0
     CURRENT_CALLS[0] = 0
+    torch.cuda.reset_peak_memory_stats()
     from torch.profiler import ProfilerActivity, profile as tprofile
     with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         steps, rejected, wall = _path_run(name, p, seed=1)
+    peak = torch.cuda.max_memory_allocated()
     launches = dict(gj_kernel.LAUNCHES)
     by_n = {k: dict(sorted(v.items())) for k, v in gj_kernel.LAUNCHES_BY_N.items()}
     lu = linsolve.LU_FACTORS[0]
-    trips = dict(runner.TRIPS)
+    trips = dict(runner.TRIPS, cell_factors=list(runner.TRIPS["cell_factors"]))
     calls = CURRENT_CALLS[0]
     walls = [_path_run(name, p, seed=1)[2] for _ in range(WARM_RUNS)]
     med = statistics.median(walls)
@@ -495,6 +581,11 @@ def profile(p: Model, name: str, card: str):
         print(f"{kname} kernel: {launches[kname]} launches (by n {by_n[kname]}), "
               f"{k_s * 1e3:.2f} ms ({k_s / max(total_s, 1e-12):.2%} of device kernel time)")
     print(f"pivoted LU factorizations: {lu} ({lu / n_trips:.1f} per trip)")
+    per_cell = sum(c.cpu().numpy() for c in trips["cell_factors"])
+    print(f"Newton-matrix factorizations: {trips['factor_trips']} of {trips['trips']} "
+          f"trips factored; per cell mean {per_cell.mean():.2f} max {per_cell.max()} "
+          f"(attempts/cell mean {att.mean():.2f}); peak device memory "
+          f"{peak / 2**20:.1f} MiB")
     sort_key = ("self_device_time_total"
                 if hasattr(kernels[0] if kernels else ka[0], "self_device_time_total")
                 else "self_cuda_time_total")
@@ -509,11 +600,17 @@ def main(names=("path1", "path2")):
         capture_output=True, text=True, timeout=60).stdout.strip()
     p32, p64 = model(), petlion(LCO)
     for name in names:
+        if name == "path13":
+            for part in "abcd":
+                profile(p64 if part == "a" else p32, "path13" + part, card)
+            continue
         p = (sei_model() if name == "path7"
-             else thermal_model() if name in ("path9", "path10")
-             else p64 if name in ("path3", "path6") else p32)
+             else thermal_model() if name in ("path9", "path10", "path10r")
+             else p64 if name in ("path3", "path6", "path13a") else p32)
         if name == "path10":
             chunks_all(p, card)
+        if name == "path10r":
+            reuse_chunk(p, card)
         profile(p, name, card)
 
 
@@ -531,6 +628,25 @@ def chunks_all(p: Model, card: str):
           f"(the JAX suite's TPU record 4232.2) max {att.max()}; cells that exited at "
           f"V_min or SOC_min {done.mean():.1%}; {runner.TRIPS['trips']} trips, "
           f"{linsolve.LU_FACTORS[0]} pivoted LU factorizations")
+
+
+def reuse_chunk(p: Model, card: str):
+    """Path 10's first chunk without and with ``jac_reuse=REUSE_K`` in
+    turns (without, with, with, without, after one cold run of each): the
+    walls, pivoted LU factorizations, attempts per cell, trips and the
+    trips that factored."""
+    for opts in ({}, REUSE_OPTS):
+        run_thermal_batched(p, seed=0, chunks=1, **opts)
+    for opts in ({}, REUSE_OPTS, REUSE_OPTS, {}):
+        linsolve.LU_FACTORS[0] = 0
+        runner.reset_trip_counts()
+        results, wall = run_thermal_batched(p, seed=1, chunks=1, **opts)
+        r = results[0]
+        att = (r.n_steps + r.n_rejected).cpu().numpy()
+        print(f"== path10{'r' if opts else ''} chunk 1, jac_reuse={opts.get('jac_reuse', 0)}: "
+              f"{wall:.3f} s warm [{card}]; {linsolve.LU_FACTORS[0]} pivoted LU "
+              f"factorizations, attempts/cell mean {att.mean():.2f} max {att.max()}, "
+              f"{runner.TRIPS['trips']} trips, {runner.TRIPS['factor_trips']} factored")
 
 
 if __name__ == "__main__":

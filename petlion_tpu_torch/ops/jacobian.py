@@ -12,6 +12,8 @@ Batch-first: the residual is a function of ``(M, N)`` rows whose per-row
 data (θ, setpoint, BDF coefficients) travels in a dict of tensors with the
 same leading axis. Cells never couple, so the sweeps of all colors and all
 cells are ONE Jacobian-vector product over a ``(n_colors·B, N)`` stack.
+The dense Jacobian of the dense routes (the JAX package's `jax.jacfwd`) is
+the same pass over the N identity seeds, an ``(N·B, N)`` stack.
 """
 
 from __future__ import annotations
@@ -47,6 +49,33 @@ def stacked_jvp(g: Callable, y, data: dict, seeds):
         (gY,) = torch.autograd.grad(out, Yr, u, create_graph=True)
         (JT,) = torch.autograd.grad(gY, u, T)
     return JT.reshape(S, B, -1).transpose(0, 1)
+
+
+def dense_jacobian(g: Callable, y, data: dict):
+    """The dense Jacobian ∂g(y)/∂y of every row, (B, M, N), in one stacked
+    pass over the N identity seeds: N·B rows, so its memory grows as B·N²."""
+    eye = torch.eye(y.shape[-1], dtype=y.dtype, device=y.device)
+    return stacked_jvp(g, y, data, eye).transpose(1, 2)
+
+
+# keys under which the per-cell BDF data of the Newton system rides along
+# with θ through the tiled sweeps
+_T, _C0, _CONST = "_t", "_c0", "_const"
+
+
+def newton_system(F: Callable, data: dict, t, y_pred, c0, psi_over_h):
+    """(g, d): the map y ↦ F(t, y, c0·y + const) with const = psi_over_h −
+    c0·y_pred, whose Jacobian is the Newton matrix ∂F/∂y + c0·∂F/∂yp, as
+    g(y, d) over `data` with each cell's t, c0 and const added to d.
+    F(t, y, yp, data) is batch-first; t, c0 (B,), y_pred, psi_over_h (B, N)."""
+    d = dict(data)
+    d[_T] = t[:, None]
+    d[_C0] = c0[:, None]
+    d[_CONST] = psi_over_h - c0[:, None] * y_pred
+
+    def g(yy, dd):
+        return F(dd[_T][:, 0], yy, dd[_C0] * yy + dd[_CONST], dd)
+    return g, d
 
 
 def last_row_grad(g: Callable, y, data: dict):

@@ -18,6 +18,11 @@ both packages:
     PETLION_PALLAS_DCHAIN "0"  "1": nested chain + core inverse through K3
 
 The full-kernel route is ``FULL_KERNEL_ROUTE`` (all four on).
+
+``get_plan(..., use_schur=False)`` is the JAX package's dense plan: the
+colored sweeps give the dense Newton matrix, factored by the equilibrated
+pivoted LU (``linsolve.equilibrated_factor``); the route's assembly and
+elimination options do not apply to it.
 """
 
 from __future__ import annotations
@@ -60,23 +65,29 @@ FULL_KERNEL_ROUTE = Route(nested=("j", "Phi_s"), blocks=True, dchain=True)
 
 
 class JacobianPlan:
-    """Coloring + multi-group Schur factor/solve for one model config."""
+    """Coloring + multi-group Schur factor/solve for one model config, or
+    with `use_schur` False the colored dense matrix and its equilibrated
+    pivoted LU."""
 
     def __init__(self, cfg: ModelConfig, pattern: np.ndarray,
-                 route: Route = Route(), theta_sample: dict | None = None):
+                 route: Route = Route(), theta_sample: dict | None = None,
+                 use_schur: bool = True):
         self.cfg = cfg
         self.route = route
+        self.use_schur = use_schur
         # the control row is computed exactly by one reverse pass and is
         # excluded from the coloring, so it is declared dense
         pattern = pattern.copy()
         pattern[-1, :] = True
         self.colored = ColoredJacobian(pattern)
-        self.split = make_group_split(cfg.layout, pattern)
-        self._specs = make_sparse_specs(self.colored, self.split, cfg.layout,
-                                        route.nested)
+        self.split = self._specs = None
+        if use_schur:
+            self.split = make_group_split(cfg.layout, pattern)
+            self._specs = make_sparse_specs(self.colored, self.split, cfg.layout,
+                                            route.nested)
         # closed-form assembly where it covers the pattern, else the sweeps
         self.analytic = None
-        if route.analytic and theta_sample is not None:
+        if use_schur and route.analytic and theta_sample is not None:
             try:
                 self.analytic = _analytic.AnalyticJacobian(cfg, self.colored,
                                                            theta_sample)
@@ -157,7 +168,11 @@ class JacobianPlan:
         sweeps; neither the dense (N, N) matrix nor the coupling blocks are
         formed. g(y, data) is batch-first, `data` its per-cell tensors.
         float32 thermal runs take the refined pivoted LU of the dense
-        colored matrix instead (`_lu_route`)."""
+        colored matrix instead (`_lu_route`). Without the Schur route: the
+        equilibrated pivoted LU of the dense colored matrix (float32 thermal
+        too, as the JAX package's)."""
+        if not self.use_schur:
+            return linsolve.equilibrated_factor(self.colored(g, y, data))
         if self._lu_route(y):
             return linsolve.refined_lu_factor(self.colored(g, y, data))
         if self.analytic is not None and th is not None and c0 is not None:
@@ -169,28 +184,32 @@ class JacobianPlan:
                                    dchain=self.route.dchain)
 
     def solve(self, fac, b):
+        if isinstance(fac, linsolve.EquilibratedLU):
+            return linsolve.equilibrated_solve(fac, b)
         if isinstance(fac, linsolve.RefinedLU):
             return linsolve.refined_lu_solve(fac, b)
         return sparse_schur_solve(fac, b, self.device_specs(b))
 
 
-_PLAN_CACHE: dict = {}       # (cfg, θ keys, route) -> JacobianPlan
+_PLAN_CACHE: dict = {}       # (cfg, θ keys, route, use_schur) -> JacobianPlan
 _PATTERN_CACHE: dict = {}    # (cfg, θ keys) -> detected pattern
 
 
-def get_plan(cfg: ModelConfig, theta: dict, route: Route | None = None
-             ) -> JacobianPlan:
+def get_plan(cfg: ModelConfig, theta: dict, route: Route | None = None,
+             use_schur: bool = True) -> JacobianPlan:
     """The plan for `cfg` on `route` (default: ``Route.from_env()``), built
-    once from float θ on the CPU in float64."""
+    once from float θ on the CPU in float64; `use_schur` False: the dense
+    plan (see the module docstring)."""
     route = Route.from_env() if route is None else route
     keys = tuple(sorted(theta.keys()))
-    key = (cfg, keys, route)
+    key = (cfg, keys, route, use_schur)
     if key not in _PLAN_CACHE:
         if (cfg, keys) not in _PATTERN_CACHE:
             _PATTERN_CACHE[(cfg, keys)] = _detect_pattern(cfg, theta)
         _PLAN_CACHE[key] = JacobianPlan(
             cfg, _PATTERN_CACHE[(cfg, keys)], route,
-            theta_sample={k: float(v) for k, v in theta.items()})
+            theta_sample={k: float(v) for k, v in theta.items()},
+            use_schur=use_schur)
     return _PLAN_CACHE[key]
 
 

@@ -23,10 +23,17 @@ kernel's plain version through the same data flow.
 Everything carries a leading cells axis. The static index metadata is built
 once on the host (numpy) and moved to the run's device once
 (`device_specs`).
+
+The particle Schur complement of a dense Newton matrix
+(`schur_factor_from_dense`, `make_schur_solver`: the JAX package's
+``run_once(linear_solver=...)`` route) eliminates only the particle blocks,
+in plain Gauss-Jordan, and inverts the rest, a 101-state core on the
+default LCO mesh, by the equilibrated Gauss-Jordan (K1 on the card).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import numpy as np
@@ -36,6 +43,120 @@ from ..layout import StateLayout
 from ..solver import linsolve
 from .dchain import dchain_hot, inv_equil
 from .gj_blocks import gj_blocks_hot
+
+
+@dataclasses.dataclass(frozen=True, eq=False)
+class ParticleSplit:
+    """Static index split of the state vector (host numpy), and its index
+    tensors on each device it has been used on."""
+    i_cs: np.ndarray        # indices of the c_s_avg states
+    i_core: np.ndarray      # all other indices (original order)
+    n_part_p: int
+    n_part_n: int
+    r_p: int
+    r_n: int
+    _dev: dict = dataclasses.field(default_factory=dict, repr=False)
+
+    def index(self, device):
+        """(i_cs, i_core, particle block indices p, n) as tensors on
+        `device`, made once per device."""
+        if device not in self._dev:
+            def blocks(offsets, r):
+                return torch.as_tensor(np.asarray(offsets)[:, None] + np.arange(r)[None, :],
+                                       device=device)
+            np_, nn_, rp, rn = self.n_part_p, self.n_part_n, self.r_p, self.r_n
+            self._dev[device] = (
+                torch.as_tensor(self.i_cs, device=device),
+                torch.as_tensor(self.i_core, device=device),
+                blocks(np.arange(np_) * rp, rp), blocks(np_ * rp + np.arange(nn_) * rn, rn))
+        return self._dev[device]
+
+
+def make_split(layout: StateLayout) -> ParticleSplit:
+    s = layout.sl("c_s_avg")
+    i_cs = np.arange(s.start, s.stop)
+    i_core = np.concatenate([np.arange(0, s.start), np.arange(s.stop, layout.N_tot)])
+    N = layout.N
+    n_n = 0 if layout.half_cell else N.n   # foil anode: no particle blocks
+    if layout.solid_diffusion == "Fickian":
+        return ParticleSplit(i_cs, i_core, N.p, n_n, N.r_p, N.r_n)
+    # quadratic/polynomial: each "particle block" is a 1x1 scalar
+    return ParticleSplit(i_cs, i_core, N.p, n_n, 1, 1)
+
+
+class SchurLU(NamedTuple):
+    """The particle Schur factorization, each field with a leading cells
+    axis; every solve with it is matmuls only."""
+    inv_p: torch.Tensor      # (B, n_part_p, r_p, r_p) particle-block inverses
+    inv_n: torch.Tensor      # (B, n_part_n, r_n, r_n)
+    AinvB: torch.Tensor      # (B, n_cs, n_core)
+    C: torch.Tensor          # (B, n_core, n_cs)
+    core_inv: tuple          # equilibrated inverse of the Schur complement
+
+
+def _apply_blocks(inv_p, inv_n, split: ParticleSplit, b):
+    """A⁻¹ b by block matmuls; b (B, n_cs) or (B, n_cs, m)."""
+    np_, nn_, rp, rn = split.n_part_p, split.n_part_n, split.r_p, split.r_n
+    squeeze = b.ndim == 2
+    if squeeze:
+        b = b[..., None]
+    B, m = b.shape[0], b.shape[-1]
+    xp = torch.matmul(inv_p, b[:, :np_ * rp].reshape(B, np_, rp, m))
+    xn = torch.matmul(inv_n, b[:, np_ * rp:].reshape(B, nn_, rn, m))
+    x = torch.cat([xp.reshape(B, np_ * rp, m), xn.reshape(B, nn_ * rn, m)], dim=1)
+    return x[..., 0] if squeeze else x
+
+
+def _gather_blocks(A, idx):
+    """The diagonal blocks A[:, idx[k], idx[k]], (B, n_part, r, r)."""
+    return A[:, idx[:, :, None], idx[:, None, :]]
+
+
+def particle_schur_complement(J, split: ParticleSplit):
+    """(inv_p, inv_n, A⁻¹B, C, D − C A⁻¹B) of dense Newton matrices
+    (B, N, N): the particle blocks eliminated, the core left to invert."""
+    i1, i2, idx_p, idx_n = split.index(J.device)
+    A = _sub(J, i1, i1)
+    # particle blocks are diagonally dominant (c0·I minus a scaled diffusion
+    # operator) and scaled within: a plain pivot-free inverse, as JAX's
+    inv_p = linsolve.gj_inverse(_gather_blocks(A, idx_p))
+    inv_n = linsolve.gj_inverse(_gather_blocks(A, idx_n))
+    AinvB = _apply_blocks(inv_p, inv_n, split, _sub(J, i1, i2))
+    C = _sub(J, i2, i1)
+    return inv_p, inv_n, AinvB, C, _sub(J, i2, i2) - torch.matmul(C, AinvB)
+
+
+def schur_factor_from_dense(J, split: ParticleSplit) -> SchurLU:
+    """Factor dense Newton matrices (B, N, N) by the particle Schur
+    complement; the core through the equilibrated Gauss-Jordan (K1 on the
+    card)."""
+    inv_p, inv_n, AinvB, C, core = particle_schur_complement(J, split)
+    return SchurLU(inv_p=inv_p, inv_n=inv_n, AinvB=AinvB, C=C,
+                   core_inv=linsolve.equilibrated_inv_factor(core))
+
+
+def schur_solve(fac: SchurLU, b, split: ParticleSplit):
+    i1, i2, _, _ = split.index(b.device)
+    z1 = _apply_blocks(fac.inv_p, fac.inv_n, split, b[:, i1])
+    rhs2 = b[:, i2] - _mv(fac.C, z1)
+    x2 = linsolve.equilibrated_inv_solve(fac.core_inv, rhs2)
+    x = torch.zeros_like(b)
+    x[:, i1] = z1 - _mv(fac.AinvB, x2)
+    x[:, i2] = x2
+    return x
+
+
+def make_schur_solver(layout: StateLayout):
+    """(factor, solve) pair for ``run_once(linear_solver=...)``."""
+    split = make_split(layout)
+
+    def factor(J):
+        return schur_factor_from_dense(J, split)
+
+    def solve(fac, b):
+        return schur_solve(fac, b, split)
+
+    return factor, solve
 
 
 class GroupSplit(NamedTuple):

@@ -31,6 +31,7 @@ def batch_simulate(p: Model,
                    dtype: Optional[torch.dtype] = None,
                    route: Optional[Route] = None,
                    y_start=None,
+                   fast_solver: bool = True,
                    **kwargs) -> RunResultDev:
     """Run the same control segment over a batch of cells.
 
@@ -46,7 +47,9 @@ def batch_simulate(p: Model,
     (B, N) continues from the solver's own states, such as an earlier
     result's ``y_final`` (with the thermal model their T block is
     T − T_amb), with that result's ``soc_final`` as SOC: a long run in
-    chunks. Returns RunResultDev with a leading cells axis on every field.
+    chunks. `fast_solver` False takes the dense route (the dense Jacobian
+    and the equilibrated pivoted LU, no plan; `route` does not apply).
+    Returns RunResultDev with a leading cells axis on every field.
     """
     dtype = p.dtype if dtype is None else dtype
     dev = resolve_device(p.device if device is None else device, dtype)
@@ -95,7 +98,7 @@ def batch_simulate(p: Model,
             y_start = initial_guess(soc0, th, p.cfg)
         else:
             y_start = torch.as_tensor(y_start, **kw).reshape(B, -1)
-        plan = get_plan(p.cfg, p.theta_floats(), route)
+        plan = get_plan(p.cfg, p.theta_floats(), route) if fast_solver else None
         return run_once(y_start=y_start, soc0=soc0, value=value, tf=tf, th=th,
                         bounds=bounds, cfg=p.cfg, spec=spec, opts=opts,
                         jac_plan=plan, is_rest=is_rest,

@@ -28,9 +28,7 @@ from .solution import Solution
 from .solver.protocol import build_segments, protocol_core
 
 
-def _prep(p: Model, segment_dicts, opts_overrides, fast_solver: bool):
-    if not fast_solver:
-        raise NotImplementedError("fast_solver=False")
+def _prep(p: Model, segment_dicts, opts_overrides):
     ov = {k: v for k, v in opts_overrides.items() if k in _OPT_KEYS}
     unknown = set(opts_overrides) - set(ov)
     if unknown:
@@ -42,13 +40,13 @@ def _prep(p: Model, segment_dicts, opts_overrides, fast_solver: bool):
 def _run(p, segment_dicts, th, soc0, opts_overrides, fast_solver, route, kw):
     """Every segment over the cells of `th` (B, 1) from SOC `soc0` (B,)."""
     opts, segments, values, tfs, bounds_list = _prep(p, segment_dicts,
-                                                     opts_overrides, fast_solver)
+                                                     opts_overrides)
     B = soc0.shape[0]
     bounds_list = tuple({k: cell_values(v, B, kw) for k, v in b.items()}
                         for b in bounds_list)
     with torch.no_grad():
         y0 = initial_guess(soc0, th, p.cfg)
-        plan = get_plan(p.cfg, p.theta_floats(), route)
+        plan = get_plan(p.cfg, p.theta_floats(), route) if fast_solver else None
         results = protocol_core(y0, soc0, values, tfs, th, bounds_list, p.cfg,
                                 segments, opts, plan)
     return opts, segments, results
@@ -63,7 +61,8 @@ def simulate_protocol(p: Model, segment_dicts, *, SOC: Optional[float] = None,
     RunResult per segment (T in kelvin, as `simulate`'s). `dtype` and
     `device` default to the model's; `route` selects the Newton-matrix
     assembly and factorization (``ops.plan.Route``; default: the PETLION_*
-    environment variables)."""
+    environment variables); `fast_solver` False takes the dense route (the
+    dense Jacobian and the equilibrated pivoted LU, no plan)."""
     dtype = p.dtype if dtype is None else dtype
     dev = resolve_device(p.device if device is None else device, dtype)
     kw = dict(dtype=dtype, device=dev)

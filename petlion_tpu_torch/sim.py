@@ -363,10 +363,10 @@ def simulate(p: Model,
     interpolated. `tstops` are explicit stop times and `tdiscon` known input
     discontinuities (each stop placed reltol/2 before it), on the
     solution's time axis. `dtype` and `device` default to the model's.
+    `fast_solver` False takes the dense route: the dense Jacobian and the
+    equilibrated pivoted LU, no plan (the JAX package's cross-check).
     Returns the new Solution, or `sol` extended in place.
     """
-    if not fast_solver:
-        raise NotImplementedError("fast_solver=False")
     dtype = p.dtype if dtype is None else dtype
     dev = resolve_device(p.device if device is None else device, dtype)
     kw = dict(dtype=dtype, device=dev)
@@ -467,7 +467,7 @@ def simulate(p: Model,
     stops_dev = torch.tensor([stops_t], **kw) if stops_t else None
 
     with torch.no_grad():
-        plan = get_plan(p.cfg, p.theta_floats())
+        plan = get_plan(p.cfg, p.theta_floats()) if fast_solver else None
         res = run_once(y_start=y_start, soc0=soc0, value=torch.full((1,), value, **kw),
                        tf=tf_run, th=th, bounds=bounds, cfg=p.cfg, spec=spec,
                        opts=opts, jac_plan=plan, is_rest=is_rest,

@@ -15,7 +15,10 @@ Every state tensor has a leading cells axis and every per-cell decision
 different orders and step sizes advance together. Rows of the difference
 array are picked per cell by comparing the row index with the cell's order.
 The host drives one attempt per call of `Stepper.step`; the Newton
-iterations run masked, with no host synchronization inside.
+iterations run masked, with no host synchronization inside. With a stale
+factorization (Jacobian reuse) a cell's step also ends when a rejection
+moves its leading coefficient out of the factor's trust range (`cj_ok`):
+a drift exit, after which the caller refactors.
 """
 
 from __future__ import annotations
@@ -32,6 +35,13 @@ _D_ROWS = MAX_ORDER + 3
 MIN_FACTOR = 0.2
 MAX_FACTOR = 10.0
 SAFETY = 0.9
+
+# Jacobian reuse (Sundials ida.c): a factorization is trusted while the BDF
+# leading coefficient stays within cjratio (3/10, 10/3) of the one it was
+# made at; a stale-matrix Newton update is damped by con = 2/(1+cjratio)
+CJ_LO = 0.3
+CJ_HI = 10.0 / 3.0
+STEP_CONTROLS = ("greedy", "ida")
 
 # status codes
 OK = 0
@@ -198,20 +208,35 @@ def predict(state: BDFState, t_bound, hmin, hmax):
     return h, D, t_new, y_pred, c0, S / h[:, None]
 
 
+def cj_ok(st: BDFState, t_bound, c0_f, hmin=1e-10, hmax=np.inf):
+    """Per cell: is the next attempt's BDF leading coefficient within the
+    stale-matrix trust range of the factorization's `c0_f` (IDA cjratio in
+    (3/10, 10/3))? (B,) bool."""
+    h = torch.clamp(st.h, hmin, hmax)
+    h = torch.minimum(h, torch.clamp_min(t_bound - st.t, hmin))
+    rat = (_gammas(st.D)[st.order] / h) / c0_f
+    return (rat > CJ_LO) & (rat < CJ_HI)
+
+
 class Stepper:
-    """The BDF attempt and the greedy retry bookkeeping.
+    """The BDF attempt and the retry bookkeeping.
 
     F(t, y, yp) -> residual (B, N) for the run's cells.
     jac_and_factor(t, y_pred, c0, psi_over_h) -> factorization.
     linsolve(factorization, b) -> x solving (Fy + c0·Fyp) x = b.
+    step_control: "greedy" (SciPy BDF: grow up to 10× by the error proxy)
+    or "ida" (Sundials IDACompleteStep: after 20 steps grow only when the
+    estimate reaches 2×, by at most 2×, hold h in [1, 2), shrink an accepted
+    step by at most half).
     """
 
     def __init__(self, F: Callable, jac_and_factor: Callable,
                  linsolve: Callable, atol, rtol, newton_maxiter: int = 4,
                  hmin: float = 1e-10, hmax: float = np.inf,
                  max_attempts: int = 100, step_control: str = "greedy"):
-        if step_control != "greedy":
-            raise NotImplementedError(f"step_control={step_control!r}")
+        if step_control not in STEP_CONTROLS:
+            raise ValueError(f"step_control={step_control!r}: one of {STEP_CONTROLS}")
+        self.step_control = step_control
         self.F, self.jac_and_factor, self.linsolve = F, jac_and_factor, linsolve
         self.atol, self.rtol = atol, rtol
         self.newton_maxiter = newton_maxiter
@@ -221,7 +246,7 @@ class Stepper:
         self.newton_tol = max(10 * np.finfo(np.float64).eps / rtol,
                               min(0.03, rtol ** 0.5))
 
-    def _newton(self, t_new, y_pred, c0, psi_over_h, J_lu, scale):
+    def _newton(self, t_new, y_pred, c0, psi_over_h, J_lu, scale, con=None):
         tol = self.newton_tol
         B = y_pred.shape[0]
         dev = y_pred.device
@@ -233,6 +258,8 @@ class Stepper:
             live = ~conv & ~div
             r = self.F(t_new, y_pred + d, c0[:, None] * d + psi_over_h)
             delta = self.linsolve(J_lu, -r)
+            if con is not None:
+                delta = con[:, None] * delta
             d_new = d + delta
             dnorm = wrms(delta, scale)
             rate = dnorm / torch.clamp_min(dnorm_old, 1e-300)
@@ -257,19 +284,30 @@ class Stepper:
             div = div | (live & div_now)
         return conv & ~div, d
 
-    def attempt(self, state: BDFState, t_bound):
-        """One step attempt for every cell: (new_state, accepted)."""
+    def attempt(self, state: BDFState, t_bound, J_lu=None, c0_f=None, pred=None):
+        """One step attempt for every cell: (new_state, accepted).
+
+        Without `J_lu` the attempt factors the Newton matrix at its own
+        predictor. With it, `J_lu` is a factorization made at leading
+        coefficients `c0_f` (B,), maybe several steps old, and every Newton
+        update is damped by con = 2/(1 + c0/c0_f). `pred`: this attempt's
+        `predict(state, t_bound, hmin, hmax)`, when the caller has it."""
         errc = _error_const(state.D)
         k = state.order
         kf = k.to(state.D.dtype)
         ar = torch.arange(_D_ROWS, device=k.device)[None, :]
         atol, rtol = self.atol, self.rtol
 
-        h, D, t_new, y_pred, c0, psi_over_h = predict(state, t_bound,
-                                                      self.hmin, self.hmax)
+        if pred is None:
+            pred = predict(state, t_bound, self.hmin, self.hmax)
+        h, D, t_new, y_pred, c0, psi_over_h = pred
         scale = atol + rtol * y_pred.abs()
-        J_lu = self.jac_and_factor(t_new, y_pred, c0, psi_over_h)
-        conv, d = self._newton(t_new, y_pred, c0, psi_over_h, J_lu, scale)
+        con = None
+        if J_lu is None:
+            J_lu = self.jac_and_factor(t_new, y_pred, c0, psi_over_h)
+        else:
+            con = 2.0 / (1.0 + c0 / c0_f)
+        conv, d = self._newton(t_new, y_pred, c0, psi_over_h, J_lu, scale, con)
 
         y = y_pred + d
         yp = c0[:, None] * d + psi_over_h
@@ -326,6 +364,14 @@ class Stepper:
         k_new = k + best - 1
         raw = SAFETY * torch.gather(fs, 1, best[:, None])[:, 0]
         factor = torch.clamp(raw, MIN_FACTOR, MAX_FACTOR)
+        if self.step_control == "ida":
+            # after the startup phase: grow only when the estimate reaches
+            # 2× (by at most 2×), hold h in [1, 2), shrink by at most half;
+            # in startup the greedy growth lets h climb from the small h0
+            held = torch.where(raw >= 2.0, torch.clamp_max(raw, 2.0),
+                               torch.where(raw >= 1.0, torch.ones_like(raw),
+                                           torch.clamp(raw, 0.5, 1.0)))
+            factor = torch.where(state.n_steps < 20, factor, held)
         D_new = change_D(D_acc, k_new, factor)
         # exact no-op when h is held
         D_new = _select(factor == 1.0, D_acc, D_new)
@@ -346,16 +392,26 @@ class Stepper:
             underflow, torch.full_like(k, UNRECOVERABLE), new_state.status))
         return new_state, accept
 
-    def step(self, state: BDFState, t_bound, tries):
-        """One attempt of the greedy accepted-step loop.
+    def step(self, state: BDFState, t_bound, tries, J_lu=None, c0_f=None,
+             pred=None):
+        """One attempt of the accepted-step loop.
 
         Returns (state, accepted, done, tries): a cell's step is done when
         the attempt is accepted, the status is no longer OK, or it has used
         `max_attempts` attempts; a step that ends un-accepted is terminal
-        (UNRECOVERABLE). `tries` counts the attempts of the current step."""
-        st, acc = self.attempt(state, t_bound)
+        (UNRECOVERABLE). `tries` counts the attempts of the current step.
+        With a stale factorization (`J_lu`, `c0_f`: see `attempt`) the step
+        is also done when a rejection leaves the next attempt's leading
+        coefficient outside the factor's trust range (`cj_ok`): that drift
+        exit keeps the status OK, and the caller refactors."""
+        st, acc = self.attempt(state, t_bound, J_lu, c0_f, pred)
         tries = tries + 1
         done = acc | (st.status != OK) | (tries >= self.max_attempts)
+        fail = done & ~acc
+        if J_lu is not None:
+            drift = ~acc & ~cj_ok(st, t_bound, c0_f, self.hmin, self.hmax)
+            done = done | drift
+            fail = fail & ~drift
         st = st._replace(status=torch.where(
-            done & ~acc, torch.full_like(st.status, UNRECOVERABLE), st.status))
+            fail, torch.full_like(st.status, UNRECOVERABLE), st.status))
         return st, acc, done, tries

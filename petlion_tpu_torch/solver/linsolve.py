@@ -1,7 +1,9 @@
 """Linear-solver pieces for the Newton iterations (counterpart of
 the JAX package's ``solver/linsolve.py``): equilibrated explicit inverses, so every
-solve is one batched matvec, and the refined pivoted LU of float32 thermal
-runs.
+solve is one batched matvec; the refined pivoted LU of float32 thermal
+runs; and the dense pivoted LU, plain or equilibrated, of the dense routes
+(``fast_solver=False``, ``get_plan(..., use_schur=False)``), which the JAX
+package computes with ``jax.scipy.linalg`` outside any Pallas kernel.
 
 Dispatch of the inverse mirrors the JAX package: n ≤ 16 takes the plain
 scalar Gauss-Jordan; larger matrices go to ``ops.gj_kernel.gj_inverse_hot``,
@@ -17,6 +19,7 @@ import torch
 
 from ..ops.gj_kernel import (_best_bs, gj_inverse, gj_inverse_blocked,  # noqa: F401
                              gj_inverse_hot)
+from ..ops.jacobian import dense_jacobian, newton_system
 
 
 def _equilibrate(J):
@@ -59,12 +62,7 @@ class RefinedLU(NamedTuple):
     The float32 thermal factorization: with a dT-hold row cond(J) reaches
     1e14–1e16, where pivot-free elimination loses every digit and the
     pivoted float32 solve alone leaves Newton at the edge of convergence;
-    the refinement step brings it to ~1e-6 relative. The LU comes from
-    `torch.linalg.lu_factor_ex`, which does not synchronize the host; a
-    cell whose matrix is not finite (LAPACK is not given it: an identity
-    stands in) or whose factorization meets an exact zero pivot (info ≠ 0)
-    gets a NaN factor, so its solves are NaN and its Newton iteration
-    fails, as a singular inverse does."""
+    the refinement step brings it to ~1e-6 relative."""
     LU: torch.Tensor
     pivots: torch.Tensor
     row: torch.Tensor
@@ -73,16 +71,20 @@ class RefinedLU(NamedTuple):
 
 
 # pivoted LU factorizations (torch.linalg.lu_factor_ex calls) since the last
-# reset: the float32 thermal route's count beside the kernels' launches
+# reset: the LU routes' count beside the kernels' launches
 LU_FACTORS = [0]
 
 
-def refined_lu_factor(J):
+def pivoted_lu(A):
+    """(LU, pivots) of a batch of matrices by `torch.linalg.lu_factor_ex`,
+    which does not synchronize the host. A matrix that is not finite
+    (LAPACK is not given it: an identity stands in) or meets an exact zero
+    pivot (info ≠ 0) gets a NaN factor, so its solves are NaN and its
+    Newton iteration fails, as a singular inverse does."""
     LU_FACTORS[0] += 1
-    Js, row, col = _equilibrate(J)
-    bad = ~torch.isfinite(Js).all(dim=-1).all(dim=-1)
-    eye = torch.eye(J.shape[-1], dtype=J.dtype, device=J.device)
-    A = torch.where(bad[..., None, None], eye, Js)
+    bad = ~torch.isfinite(A).all(dim=-1).all(dim=-1)
+    eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
+    A = torch.where(bad[..., None, None], eye, A)
     if A.is_cuda or A.shape[0] == 1 or torch.get_num_threads() == 1:
         LU, pivots, info = torch.linalg.lu_factor_ex(A)
     else:
@@ -95,7 +97,65 @@ def refined_lu_factor(J):
             *(torch.linalg.lu_factor_ex(A[b:b + 1]) for b in range(A.shape[0]))))
     LU = torch.where((bad | (info != 0))[..., None, None],
                      torch.full_like(LU, float("nan")), LU)
+    return LU, pivots
+
+
+def _lu_solve(LU, pivots, b):
+    return torch.linalg.lu_solve(LU, pivots, b[..., None])[..., 0]
+
+
+def refined_lu_factor(J):
+    Js, row, col = _equilibrate(J)
+    LU, pivots = pivoted_lu(Js)
     return RefinedLU(LU=LU, pivots=pivots, row=row, col=col, J=J)
+
+
+class DenseLU(NamedTuple):
+    """Pivoted LU of the dense Newton matrix."""
+    LU: torch.Tensor
+    pivots: torch.Tensor
+
+
+def dense_factor(J):
+    return DenseLU(*pivoted_lu(J))
+
+
+def dense_solve(fac: DenseLU, b):
+    return _lu_solve(fac.LU, fac.pivots, b)
+
+
+class EquilibratedLU(NamedTuple):
+    """Pivoted LU of the row/column-equilibrated dense Newton matrix and
+    its scalings: the default factorization without a plan."""
+    LU: torch.Tensor
+    pivots: torch.Tensor
+    row: torch.Tensor
+    col: torch.Tensor
+
+
+def equilibrated_factor(J):
+    """Row/column-equilibrated dense pivoted LU. The P2D Newton matrix
+    mixes magnitudes from c_s (~5e4) down to j (~1e-5); unit max-norm rows
+    and columns keep a float32 LU accurate."""
+    Js, row, col = _equilibrate(J)
+    return EquilibratedLU(*pivoted_lu(Js), row, col)
+
+
+def equilibrated_solve(fac: EquilibratedLU, b):
+    return _lu_solve(fac.LU, fac.pivots, b / fac.row) / fac.col
+
+
+def make_dense_jacfwd(F, data: dict, factor=dense_factor):
+    """jac_and_factor(t, y_pred, c0, psi_over_h) for ``bdf.Stepper``: the
+    dense Newton matrix ∂F/∂y + c0 ∂F/∂yp as the Jacobian of
+    y ↦ F(t, y, c0·y + const), in one stacked pass over identity seeds
+    (``ops.jacobian.dense_jacobian``), then `factor` (the JAX package's
+    ``make_dense_jacfwd``, with `jax.jacfwd`). F(t, y, yp, data) is
+    batch-first; `data` holds its per-cell tensors."""
+    def jac_and_factor(t, y_pred, c0, psi_over_h):
+        g, d = newton_system(F, data, t, y_pred, c0, psi_over_h)
+        return factor(dense_jacobian(g, y_pred, d))
+    return jac_and_factor
 
 
 def row_sums_in_column_order(P):
@@ -117,8 +177,7 @@ def row_sums_in_column_order(P):
 
 def refined_lu_solve(fac: RefinedLU, b):
     def base(rhs):
-        x = torch.linalg.lu_solve(fac.LU, fac.pivots, (rhs / fac.row)[..., None])
-        return x[..., 0] / fac.col
+        return _lu_solve(fac.LU, fac.pivots, rhs / fac.row) / fac.col
 
     x = base(b)
     # one refinement step, its residual b − J x in the working precision

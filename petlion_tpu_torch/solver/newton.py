@@ -21,6 +21,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..ops.jacobian import dense_jacobian
 from . import linsolve
 
 
@@ -35,6 +36,25 @@ def _select(mask, a, b):
     return torch.where(mask.reshape(mask.shape + (1,) * (a.ndim - 1)), a, b)
 
 
+def algebraic_residual(F: Callable, n_diff: int):
+    """alg_res(y_alg, d): the algebraic rows of F at YP = 0, (M, n_alg), with
+    the differential states in d["_y_diff"] and the time in d["_t_init"];
+    its last row is the control row with YP_diff := rhs (the residual at
+    YP = 0 is the rhs, since res = rhs − YP), as the JAX package substitutes
+    it."""
+    nd = n_diff
+
+    def alg_res(y_alg, d):
+        y = torch.cat([d["_y_diff"], y_alg], dim=-1)
+        t = d["_t_init"][:, 0]
+        yp0 = torch.zeros_like(y)
+        r = F(t, y, yp0, d)
+        yp_eff = torch.cat([r[:, :nd], yp0[:, nd:]], dim=-1)
+        r2 = F(t, y, yp_eff, d)
+        return torch.cat([r[:, nd:-1], r2[:, -1:]], dim=-1)
+    return alg_res
+
+
 def consistent_init(F: Callable, y0, n_diff: int, data: dict, *,
                     reltol_init=1e-3, maxiter=100, c_e0=1000.0, t0=None,
                     jac_plan=None, th=None, cells=None) -> InitResult:
@@ -42,7 +62,11 @@ def consistent_init(F: Callable, y0, n_diff: int, data: dict, *,
     holds the per-cell tensors F reads (θ, setpoint). y0: (B, N) guess; t0:
     each cell's initialization time, (B,) (0 by default; a re-initialization
     after a discontinuity passes the cells' jump times). With θ (`th`, (B, 1)
-    tensors) the plan may assemble the algebraic block analytically.
+    tensors) the plan may assemble the algebraic block analytically; without
+    a plan the block is the dense Jacobian of the algebraic residual, by one
+    stacked pass over identity seeds, and its equilibrated inverse (K1 on
+    the card), as the JAX package's `jax.jacfwd` route (in float32 thermal
+    runs too: the dense route takes no refined LU).
     `cells` (B,) bool: the cells whose iteration the loop waits for (all by
     default); the others take the first iteration only."""
     nd = n_diff
@@ -50,23 +74,16 @@ def consistent_init(F: Callable, y0, n_diff: int, data: dict, *,
     if t0 is None:
         t0 = torch.zeros(y0.shape[0], dtype=dtype, device=y0.device)
     data = dict(data, _t_init=t0[:, None])
-
-    def alg_res(y_alg, d):
-        y = torch.cat([d["_y_diff"], y_alg], dim=-1)
-        t = d["_t_init"][:, 0]
-        yp0 = torch.zeros_like(y)
-        r = F(t, y, yp0, d)
-        # the control row with YP_diff := rhs (the residual at YP = 0 is the
-        # rhs, since res = rhs − YP), as the JAX package substitutes it
-        yp_eff = torch.cat([r[:, :nd], yp0[:, nd:]], dim=-1)
-        r2 = F(t, y, yp_eff, d)
-        return torch.cat([r[:, nd:-1], r2[:, -1:]], dim=-1)
+    alg_res = algebraic_residual(F, nd)
 
     def body(y):
         y_diff, y_alg = y[:, :nd], y[:, nd:]
         d = dict(data, _y_diff=y_diff)
         r = alg_res(y_alg, d)
-        lu = jac_plan.factor_alg(alg_res, y_alg, d, y_diff=y_diff, th=th)
+        if jac_plan is not None:
+            lu = jac_plan.factor_alg(alg_res, y_alg, d, y_diff=y_diff, th=th)
+        else:
+            lu = linsolve.equilibrated_inv_factor(dense_jacobian(alg_res, y_alg, d))
         step = linsolve.equilibrated_inv_solve(lu, r)
         # trust-region cap against astronomically long steps (f32 noise
         # floors, extreme setpoints); convergent iterations are unchanged

@@ -5,11 +5,22 @@ The JAX package vmaps a single-cell `lax.while_loop`. Here every state
 tensor carries the cells axis and the host drives the loop: each trip makes
 one BDF attempt for every cell, applies it to the cells still running, and
 does the step bookkeeping (SOC, recording, events) for the cells whose step
-ended. That is one host synchronization per trip (`active.any()`), and a
-second on a run with a function input (whether some cell's input jumped,
-which a re-initialization then handles for those cells). Cells are
-independent, so each goes through the same arithmetic as under the JAX
-while-loops, and its result is the same.
+ended. That is one host synchronization per trip (`active.any()`, read
+together with whether some cell needs a factorization under Jacobian
+reuse), and a second on a run with a function input (whether some cell's
+input jumped, which a re-initialization then handles for those cells).
+Cells are independent, so each goes through the same arithmetic as under
+the JAX while-loops, and its result is the same.
+
+Jacobian reuse (``opts.jac_reuse`` = K > 0, the JAX package's ``K_REUSE``
+chunks): each cell carries its own factorization, the leading coefficient
+`c0_f` it was made at and its trips in the chunk. A cell refactors, at the
+predictor of its next attempt, when its chunk starts: after K trips, when
+`bdf.cj_ok` fails, after a rejected step's drift exit, or after a
+re-initialization. A trip on which some cell refactors factors every cell
+and keeps the new factor only for those (`_select_tree`): the batch keeps
+its shape, so each cell's factor is the same whichever other cells
+refactor with it.
 """
 
 from __future__ import annotations
@@ -20,17 +31,18 @@ from typing import NamedTuple
 import torch
 
 from ..config import EXIT_FAILED, EXIT_SIMULATING, SimOptions
+from ..ops.jacobian import newton_system
 from ..physics.residuals import ModelConfig, calc_I1C
-from . import bdf, control, events
+from . import bdf, control, events, linsolve
 from .newton import consistent_init
 
 SCALAR_OUTPUTS = ("t", "V", "I", "P", "SOC")
 VECTOR_OUTPUTS = ("c_e", "c_s_avg", "T", "film", "Q", "j", "j_s",
                   "Phi_e", "Phi_s", "SOH", "eps_s", "Y", "YP")
 
-# keys under which per-cell solver data rides along with θ through the
-# tiled Jacobian sweeps
-_VALUE, _T, _C0, _CONST = "_ctrl_value", "_t", "_c0", "_const"
+# key under which each cell's setpoint rides along with θ through the tiled
+# Jacobian sweeps
+_VALUE = "_ctrl_value"
 
 
 class RunnerState(NamedTuple):
@@ -65,10 +77,13 @@ def _select(mask, a, b):
                        a, b)
 
 
-def _select_tuple(mask, a, b):
-    """Per-cell select over a (nested) NamedTuple of tensors."""
-    return type(a)(*(_select_tuple(mask, x, y) if isinstance(x, tuple)
-                     else _select(mask, x, y) for x, y in zip(a, b)))
+def _select_tree(mask, a, b):
+    """Per-cell select over nested (named) tuples of tensors, each with a
+    leading cells axis; the tuples keep their types."""
+    if not isinstance(a, tuple):
+        return _select(mask, a, b)
+    vals = [_select_tree(mask, x, y) for x, y in zip(a, b)]
+    return type(a)(*vals) if hasattr(a, "_fields") else tuple(vals)
 
 
 def _vector_outputs(opts: SimOptions, cfg: ModelConfig):
@@ -156,19 +171,23 @@ def initial_current_guess(spec: control.ControlSpec, value, y0, th,
 
 
 # over every run since the last reset: the outer trips, the trips that ran
-# a re-initialization after an input discontinuity, and the host seconds
-# spent in those re-initializations
-TRIPS = {"trips": 0, "reinit": 0, "reinit_s": 0.0}
+# a re-initialization after an input discontinuity and the host seconds
+# spent in those re-initializations, the trips that factored the Newton
+# matrix, and each run's factorizations per cell ((B,) tensors: one per
+# attempt, or under Jacobian reuse one per chunk)
+TRIPS = {"trips": 0, "reinit": 0, "reinit_s": 0.0, "factor_trips": 0,
+         "cell_factors": []}
 
 
 def reset_trip_counts():
-    TRIPS.update(trips=0, reinit=0, reinit_s=0.0)
+    TRIPS.update(trips=0, reinit=0, reinit_s=0.0, factor_trips=0, cell_factors=[])
 
 
 def run_once(*, y_start, soc0, value, tf, th, bounds: dict,
              cfg: ModelConfig, spec: control.ControlSpec, opts: SimOptions,
-             jac_plan, is_rest: bool = False, is_temperature_hold: bool = False,
-             prev_I=None, has_prev=None, tstops=None) -> RunResultDev:
+             jac_plan=None, linear_solver=None, is_rest: bool = False,
+             is_temperature_hold: bool = False, prev_I=None, has_prev=None,
+             tstops=None) -> RunResultDev:
     """Execute one run for a batch of cells.
 
     y_start (B, N): starting states, whose algebraic part is re-initialized;
@@ -179,11 +198,15 @@ def run_once(*, y_start, soc0, value, tf, th, bounds: dict,
     `tstops` (B, K) or None: each cell's explicit stop times; every step
     ends at or before the cell's next stop (pad a row with inf).
 
+    The Newton matrix comes from `jac_plan` (``ops.plan.JacobianPlan``:
+    colored or analytic assembly and its factorization); without a plan it
+    is the dense Jacobian, factored and solved by `linear_solver`, a
+    (factor, solve) pair such as ``ops.structured.make_schur_solver``, by
+    default ``linsolve.equilibrated_factor``/``equilibrated_solve``.
+
     With a function input, each accepted step probes the input at
     t + reltol; a cell whose input jumps there is re-initialized at the
     jump (consistent initialization, a fresh step size, BDF order 1)."""
-    if opts.jac_reuse:
-        raise NotImplementedError("jac_reuse > 0")
     L = cfg.layout
     nd = L.N_diff
     B = y_start.shape[0]
@@ -228,20 +251,20 @@ def run_once(*, y_start, soc0, value, tf, th, bounds: dict,
         h0 = bdf.initial_step_size(y0, yp0, atol, opts.reltol, tf)
     state0 = bdf.bdf_init(0.0, y0, yp0, h0)
 
-    def jac_and_factor(t, y_pred, c0, psi_over_h):
-        d = dict(data)
-        d[_T] = t[:, None]
-        d[_C0] = c0[:, None]
-        d[_CONST] = psi_over_h - c0[:, None] * y_pred
+    if jac_plan is not None:
+        solve = jac_plan.solve
 
-        def g(yy, dd):
-            return F(dd[_T][:, 0], yy, dd[_C0] * yy + dd[_CONST], dd)
-
-        return jac_plan.factor_compressed(g, y_pred, d, t=t, c0=c0, th=th)
+        def jac_and_factor(t, y_pred, c0, psi_over_h):
+            g, d = newton_system(F, data, t, y_pred, c0, psi_over_h)
+            return jac_plan.factor_compressed(g, y_pred, d, t=t, c0=c0, th=th)
+    else:
+        factor, solve = linear_solver or (linsolve.equilibrated_factor,
+                                          linsolve.equilibrated_solve)
+        jac_and_factor = linsolve.make_dense_jacfwd(F, data, factor)
 
     hmax = opts.dtmax if opts.dtmax is not None else float("inf")
     stepper = bdf.Stepper(lambda t, y, yp: F(t, y, yp, data), jac_and_factor,
-                          jac_plan.solve, atol, opts.reltol,
+                          solve, atol, opts.reltol,
                           newton_maxiter=opts.newton_maxiter, hmax=hmax,
                           step_control=opts.step_control)
 
@@ -257,7 +280,7 @@ def run_once(*, y_start, soc0, value, tf, th, bounds: dict,
         jumped = acc & ((v_probe - v_now).abs()
                         > opts.abstol + opts.reltol * v_now.abs())
         if not bool(jumped.any()):
-            return st
+            return st, jumped
         start = time.perf_counter()
         init2 = init_at(y, t_jump, cells=jumped)
         h_new = bdf.initial_step_size(init2.y, init2.yp, atol, opts.reltol,
@@ -265,7 +288,7 @@ def run_once(*, y_start, soc0, value, tf, th, bounds: dict,
         st = bdf.restart(st, jumped, t_jump, init2.y, init2.yp, h_new)
         TRIPS["reinit"] += 1
         TRIPS["reinit_s"] += time.perf_counter() - start
-        return st
+        return st, jumped
 
     vec_outs = _vector_outputs(opts, cfg)
     bufs = _make_bufs(opts, cfg, vec_outs, y0)
@@ -290,6 +313,14 @@ def run_once(*, y_start, soc0, value, tf, th, bounds: dict,
                      save_idx=torch.ones_like(zeros_i), y_prev=y0, t_prev=t0,
                      soc_prev=soc0)
     tries = zeros_i
+    # Jacobian reuse: each cell's factorization, the leading coefficient it
+    # was made at, its trips in the chunk, and whether it refactors at its
+    # next attempt
+    K = int(opts.jac_reuse)
+    fac = c0_f = None
+    chunk = zeros_i
+    fresh = all_cells
+    n_factors = zeros_i
 
     # explicit stops: each step's bound is the cell's next stop time
     if tstops is not None:
@@ -307,15 +338,41 @@ def run_once(*, y_start, soc0, value, tf, th, bounds: dict,
         st0 = rs.bdf
         active = ((rs.flag == EXIT_SIMULATING) & (st0.t < tf)
                   & (st0.status == bdf.OK) & (st0.n_steps < opts.maxiters))
-        if not bool(active.any()):
+        t_bound = t_bound_of(st0.t)
+        if K:
+            need = active & fresh
+            go, refactor = torch.stack([active.any(), need.any()]).tolist()
+        else:
+            go = bool(active.any())
+        if not go:
             break
         TRIPS["trips"] += 1
-        st, acc, done, tries_new = stepper.step(st0, t_bound_of(st0.t), tries)
+        if K:
+            pred = bdf.predict(st0, t_bound, stepper.hmin, stepper.hmax)
+            if refactor:
+                # every cell is factored at its predictor; the cells that
+                # start a chunk keep theirs
+                TRIPS["factor_trips"] += 1
+                _, _, t_new, y_pred, c0, psi_over_h = pred
+                new = jac_and_factor(t_new, y_pred, c0, psi_over_h)
+                fac = new if fac is None else _select_tree(need, new, fac)
+                c0_f = c0 if c0_f is None else torch.where(need, c0, c0_f)
+                chunk = torch.where(need, zeros_i, chunk)
+                fresh = fresh & ~need
+                n_factors = n_factors + need.to(torch.int64)
+            st, acc, done, tries_new = stepper.step(st0, t_bound, tries, fac, c0_f,
+                                                    pred)
+        else:
+            TRIPS["factor_trips"] += 1
+            n_factors = n_factors + active.to(torch.int64)
+            st, acc, done, tries_new = stepper.step(st0, t_bound, tries)
         tries = torch.where(active, torch.where(done, zeros_i, tries_new), tries)
         ended = active & done        # cells whose accepted-step loop ended
 
+        keep = acc
         if spec.func is not None:
-            st = reinit_jumps(st, ended & acc)
+            st, jumped = reinit_jumps(st, ended & acc)
+            keep = acc & ~jumped     # a re-initialization voids the factor
 
         # step bookkeeping, applied to the cells in `ended`
         y, yp, t = st.D[:, 0], st.yp, st.t
@@ -327,7 +384,7 @@ def run_once(*, y_start, soc0, value, tf, th, bounds: dict,
         _record(bufs, rec_idx, ended & acc, t, y, yp, soc, th, cfg, vec_outs)
         prev, flag = events.check_stop(t, y, yp, soc, rs.prev, rs.flag, bounds,
                                        th, cfg, spec.method, **chk)
-        prev = _select_tuple(acc, prev, rs.prev)
+        prev = _select_tree(acc, prev, rs.prev)
         flag = torch.where(acc, flag, rs.flag)
         flag = torch.where(st.status != bdf.OK,
                            torch.full_like(flag, EXIT_FAILED), flag)
@@ -337,9 +394,21 @@ def run_once(*, y_start, soc0, value, tf, th, bounds: dict,
             y_prev=_select(acc, y_prev, rs.y_prev),
             t_prev=torch.where(acc, t_prev, rs.t_prev),
             soc_prev=torch.where(acc, rs.soc, rs.soc_prev))
-        rs = _select_tuple(ended, done_rs, rs)
+        rs = _select_tree(ended, done_rs, rs)
         # cells still retrying keep the rejected attempt's solver state
         rs = rs._replace(bdf=bdf.select_state(active, st, st0))
+
+        if K:
+            # a cell whose step ended goes on with its factor while it has
+            # taken fewer than K trips of the chunk, its step was accepted
+            # (not a drift exit) without a re-initialization, and the next
+            # attempt's leading coefficient stays in the factor's range
+            chunk = chunk + ended.to(torch.int64)
+            nxt = rs.bdf
+            go_on = keep & (chunk < K) & bdf.cj_ok(nxt, t_bound_of(nxt.t), c0_f,
+                                                   stepper.hmin, stepper.hmax)
+            fresh = torch.where(ended, ~go_on, fresh)
+    TRIPS["cell_factors"].append(n_factors)
 
     stop_is_margin = False
     if stop_fn is not None:

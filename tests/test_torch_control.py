@@ -235,7 +235,8 @@ def test_unported_inputs_raise_and_unit_cases(models):
     `_build_control` measures the mean temperature's rate the same way
     (1e-13) on two thermal states, a dT-hold run from a thermal state keeps
     the mean temperature within 1e-6 K, and the holds need the thermal
-    model; jac_reuse and step_control="ida" raise NotImplementedError;
+    model; jac_reuse and step_control="ida" run (ported since), an unknown
+    step control raises;
     ControlSpec refuses an unknown method; a user function's result must be
     a tensor on the run's device or a number; and initial_current_guess
     seeds the current as the JAX package's does for every method, fresh and
@@ -266,10 +267,10 @@ def test_unported_inputs_raise_and_unit_cases(models):
     assert sol.results[-1].method == "dT" and sol.final_exit_reason() == "Final time reached"
     T_run = [_mean_T_host(y, pt_t) for y in sol.arrays["Y"][sol.results[-1].run_index]]
     assert max(abs(T - T0) for T in T_run) < 1e-6 and T0 > 298.2
-    for kw, match in ((dict(I=-1, jac_reuse=4), "jac_reuse"),
-                      (dict(I=-1, step_control="ida"), "ida")):
-        with pytest.raises(NotImplementedError, match=match):
-            ptt.simulate(p, 10.0, SOC=0.5, **kw)
+    for kw in (dict(I=-1, jac_reuse=4), dict(I=-1, step_control="ida")):
+        assert ptt.simulate(p, 10.0, SOC=0.5, **kw).final_exit_reason() == "Final time reached"
+    with pytest.raises(ValueError, match="step_control"):
+        ptt.simulate(p, 10.0, SOC=0.5, I=-1, step_control="fast")
     with pytest.raises(ValueError):
         control.ControlSpec("Q")
     like = torch.zeros(3, 4, dtype=torch.float64)

@@ -224,3 +224,52 @@ def test_batch_protocol_on_card_matches_cpu():
         np.testing.assert_allclose(g.t_final.cpu().numpy(), c.t_final.numpy(), rtol=1e-9)
         y_g, y_c = g.y_final.cpu().numpy(), c.y_final.numpy()
         assert np.max(np.abs(y_g - y_c) / (1 + np.abs(y_c))) < 1e-9
+
+
+def _solver_option_run(dev, case):
+    """One float64 run of `case` on `dev` with the launch counts set to 0
+    first: a RunResultDev of three cells (600 s of path 1's discharge)."""
+    from petlion_tpu_torch import main_path as mp
+    from petlion_tpu_torch.ops.plan import FULL_KERNEL_ROUTE
+    from petlion_tpu_torch.ops.structured import make_schur_solver
+    p = ptt.petlion(ptt.LCO, device=dev, dtype=torch.float64)
+    gk.reset_launch_counts()
+    kw = dict(I=-1.0, SOC=1.0, outputs=("t", "V"), theta_batch=THETA)
+    if case == "reuse":
+        return ptt.batch_simulate(p, 600.0, jac_reuse=6, **kw)
+    if case == "reuse_full_kernel":
+        return ptt.batch_simulate(p, 600.0, jac_reuse=6, route=FULL_KERNEL_ROUTE, **kw)
+    if case == "dense":
+        return ptt.batch_simulate(p, 600.0, fast_solver=False, **kw)
+    # the particle-Schur route through run_once, path 13(c)'s entry
+    return mp.run_solver(p, 0, n_cells=3, linear_solver=make_schur_solver(p.layout))[0]
+
+
+@pytest.mark.parametrize("case, needs", [
+    ("reuse", {"gj_inverse": 71}),
+    ("reuse_full_kernel", {"gj_blocks": None, "dchain": None}),
+    ("dense", {"gj_inverse": 71}),
+    ("schur", {"gj_inverse": 101})])
+def test_solver_option_on_card_matches_cpu(case, needs):
+    """The solver options at B = 3 in float64 on the card against the same
+    run on the CPU: jac_reuse=6 on the default route (K1 at the 71-state
+    core) and on the full-kernel route (K2 and K3), fast_solver=False (the
+    dense Jacobian and LU; K1 at the initialization's 71-state block), and
+    run_once(linear_solver=make_schur_solver(layout)) over path 1's full
+    discharge of its first three cells (K1 at the 101-state core): the same
+    flags and step counts, t and V within 1e-9."""
+    _need_card()
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        runs[dev] = _solver_option_run(dev, case)
+    for k, n in needs.items():
+        assert gk.LAUNCHES[k] > 0, k
+        if n is not None:
+            assert gk.LAUNCHES_BY_N[k].get(n, 0) > 0, (k, n)
+    c, g = runs["cpu"], runs["cuda"]
+    assert g.flag.tolist() == c.flag.tolist()
+    assert g.n_steps.tolist() == c.n_steps.tolist()
+    assert g.n_rejected.tolist() == c.n_rejected.tolist()
+    for k in ("t", "V"):
+        np.testing.assert_allclose(g.bufs[k].cpu().numpy(), c.bufs[k].numpy(),
+                                   rtol=1e-9, atol=1e-9)

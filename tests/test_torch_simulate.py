@@ -122,7 +122,6 @@ def test_options_warnings_and_errors(models):
 
     for bad, err in ((dict(I=-1, V=4.0), ValueError), (dict(I="hold"), ValueError),
                      (dict(I=-1, bogus=1), TypeError), (dict(dT="hold"), ValueError),
-                     (dict(I=-1, fast_solver=False), NotImplementedError),
                      (dict(I=-1, SOC=0.0), ValueError)):
         with pytest.raises(err):
             ptt.simulate(p, 10.0, **bad)

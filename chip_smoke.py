@@ -9,9 +9,9 @@ Phases, each of which must pass (any failure exits non-zero and prints no
 1. device: the card's name and power limit (nvidia-smi), torch and CUDA
    versions; TF32 set off and asserted off, and the port must refuse a
    float32 CUDA run while matmul TF32 is on;
-2. build: compile the three kernels (petlion_tpu_torch/csrc/gj_inverse.cu,
-   gj_blocks.cu, dchain.cu) from the checkout, one nvcc per source, all
-   started together;
+2. build: compile the five kernels (petlion_tpu_torch/csrc/gj_inverse.cu,
+   gj_blocks.cu, dchain.cu and the tangents gj_tangent.cu, dchain_tangent.cu)
+   from the checkout, one nvcc per source, all started together;
 3. kernels, each held against its plain PyTorch version on the card and
    timed beside its bound, the plain version and, where one PyTorch call
    computes the same function, that call (a yardstick the port never calls):
@@ -46,6 +46,15 @@ Phases, each of which must pass (any failure exits non-zero and prints no
    shapes over sixteen (60-66 MB), behind a spin kernel that holds the
    stream while the host queues the launches, so the time is the device's;
    the host µs per wrapper call are printed beside it;
+   the tangent kernels of path 14 (phase_k1t, phase_k3t): K1ᵗ (dX =
+   −X·dA·X) at (1, 71) and (2, 71) in float64, (1024, 71) in float32,
+   (10240, 10) and (1024, 30) in float32 and float64; K3ᵗ on the permuted
+   real cores K3 takes (B = 1, 5, 1024) in float32 and float64; each held
+   against its plain version (float64 within 1e-10 of the tangent's scale;
+   float32 error against float64 at most 4× the plain float32 version's
+   plus 1e-5) and timed beside its bound, the plain version and two
+   torch.bmm calls. From here until path 14 every reset of the launch
+   counts checks that no tangent kernel launched;
 4. main paths (petlion_tpu_torch/main_path.py): `batch_simulate` of 1024 LCO
    cells, a 1C discharge from SOC 1 in float32 with the benchmark options,
    D_sp/D_sn/k_p/k_n perturbed ±5% per cell from a numpy seed (cell 0
@@ -55,9 +64,10 @@ Phases, each of which must pass (any failure exits non-zero and prints no
    just after. Every cell must exit with flag 0, 1 or 3, each kernel of the
    path must have been launched, and cell 0 must land within 5 s and 8e-3 V
    of the float64 oracle (tests/data/oracle_lco_1c.npz). Then a warm run
-   of one batch per path (EARLY_WARM runs, one, as on paths 3-7: the
-   script's time limit; `python -m petlion_tpu_torch.main_path` takes three)
-   gives discharges/s. The colored-sweep route
+   of one batch per path (EARLY_WARM runs, one: the script's time limit;
+   `python -m petlion_tpu_torch.main_path` takes three) gives
+   discharges/s; the later paths take no warm run (to leave room for
+   path 14 in the time limit; main_path.py takes their walls). The colored-sweep route
    (PETLION_JACA=0) is driven once at 64 cells under the same checks.
 5. simulate (path 3, `main_path.run_single`): the golden single-cell flow
    on the card in float64 on the default route (K1 for the 71x71 core):
@@ -67,14 +77,14 @@ Phases, each of which must pass (any failure exits non-zero and prints no
    `sol(t)` must go through the native C++ spline; the solution is saved,
    loaded and resumed; the float32 discharge (abstol 1e-3) must stay within
    5 mV of the float64 trace, each read through its Solution's
-   interpolation. K1 must be launched in the phase; a warm float64
-   discharge gives the single-cell wall.
+   interpolation. K1 must be launched in the phase (no warm run: the
+   script's time limit; main_path.py path3 takes the walls).
 6. tstops (path 4, `main_path.run_tstops`): path 1's 1024 cells in float32
    with max_save 128, three stop times per cell from a numpy seed in
    [200, 3400] s and a shared discontinuity at 1800 s: every cell must exit
    with flag 3 and record a time within 1e-2 s of each of its stops and of
    1800 − reltol/2, cell 0 within 5 s and 8e-3 V of the oracle; steps and
-   attempts per cell are printed beside path 1's; a warm run.
+   attempts per cell are printed beside path 1's.
 
 7. gitt (path 5, `main_path.run_gitt`): 1024 LCO cells in float32 on the
    default route, each discharged at 1C by a batch-first function input
@@ -84,14 +94,14 @@ Phases, each of which must pass (any failure exits non-zero and prints no
    record a time within 1e-2 s of its pulse end, carry |I + 1| < 1e-3
    before it (up to 0.01 s) and |I| < 1e-3 after it (from 0.5 s), and end
    within 1 s of 900 s; K1 must be launched, and the trips that ran a
-   re-initialization are printed; a warm run gives discharges/s.
+   re-initialization are printed.
 8. cccv (path 6, `main_path.run_cccv`, `run_power`, `run_eta`): one cell
    in float64 through `simulate`, 2C from SOC 0 to V_max 4.1 V ("Above max.
    voltage"), then V = "hold" until I_min 0.05C ("Below min. C-rate" with
    |I - 0.05| < 5e-3, or "Above max. SOC") with the power continuous across
    the boundary (rtol 1e-3); then P = -10 W/m² for 600 s (|P + 10| < 1e-6)
    and eta_p = 0.05 V for 60 s (|eta_p - 0.05| < 1e-6) from SOC 0.5. K1 must
-   be launched; the warm wall of the CC→CV pair is printed.
+   be launched.
 
 9. k1_core92 (after the K1 phase): K1 at the cores of path 7 (NMC + SEI,
    92 states) and of the stress model (91) in float32, at (256, n): random
@@ -110,12 +120,12 @@ Phases, each of which must pass (any failure exits non-zero and prints no
    two routes agree in V within 1e-4 V on the saved points where they step
    in lockstep and at the exit, and in exit time within 1e-4 (relative);
    cell 0 lies within 2 mV of the same cell in float64 on the card (read
-   through that run's interpolation, up to 100 s before the exit); a warm
-   run gives discharges/s, steps and attempts per cell.
+   through that run's interpolation, up to 100 s before the exit).
 11. sei_cycling (`main_path.run_sei_cycling`): the JAX suite's
    4_sei_cycling on one cell in float32 and in float64 — the exit sequence
-   "Above max. SOC", then "Below min. SOC" / "Above max. SOC" three times,
-   SOH never rising over the chain, the final SOH of the two within 1e-5
+   "Above max. SOC", then "Below min. SOC" / "Above max. SOC" once (one
+   cycle of the suite's three: the script's time limit), SOH
+   never rising over the chain, the final SOH of the two within 1e-5
    (relative); K1 must launch.
 12. variants: one float64 cell, 600 s of a 1C discharge, of
    NMC_LGM50(aging="stress"), LCO(solid_diffusion="polynomial"),
@@ -133,8 +143,7 @@ Phases, each of which must pass (any failure exits non-zero and prints no
    spills.
 14. solver options (after paths 8-10): path 11, path 1 with jac_reuse=6,
    and path 12, path 1 with step_control="ida", under path 1's checks, with
-   factorizations, attempts and rejections per cell beside path 1's and a
-   warm wall each.
+   factorizations, attempts and rejections per cell beside path 1's.
 15. dense routes (path 13), one cold run each: the golden discharge of one
    float64 cell with fast_solver=False against path 3's fast route (rtol
    1e-10 on t, 1e-8 on V), and 64 float32 cells of path 1 through
@@ -142,16 +151,33 @@ Phases, each of which must pass (any failure exits non-zero and prints no
    make_schur_solver(layout)) (K1 at n = 101) and run_once(jac_plan=
    get_plan(..., use_schur=False)), under path 1's checks, with the peak
    device memory of each.
+16. estimation (path 14, float64, `petlion_tpu_torch.estimation`): (a)
+   `sensitivities(p, ["D_sp"], [100, 300, 550], I_crate=-1, SOC=0.5)` (the
+   JAX package's tests/test_estimation.py:18) on the default route, which
+   must launch K1ᵗ at n = 71, held against the port's central difference on
+   the card (ε = 1e-18, rtol 1e-5) and against the port on the CPU (rtol
+   1e-8); (b) the same on the full-kernel
+   route, which must launch K1ᵗ at n = 10 and 30 and K3ᵗ, within 1e-7 of
+   (a); (c) the JAX test's Gauss–Newton recovery of {D_sp: 1.7e-14, k_n:
+   3.1e-11} from (1e-14, 5.031e-11), 24 points on 60–1700 s from SOC 0.9,
+   10 iterations at most: each within 1e-3. Walls, trips, Gauss–Newton
+   iterations and rms, and launches by kernel and n are printed.
 
 The line before the last is the kernels' JSON record (one entry per kernel;
 `launches` is the count of the paths that run it: path 1, simulate, tstops,
 gitt, cccv, the protocol and paths 11-13 (at n = 71) for K1, path 2 for K2
 and K3; `gj_inverse_n92`, `gj_inverse_n121_f64` and `gj_inverse_n101` are
 K1 at the 92-state core of path 7, the thermal core of path 9 and the
-particle-Schur core of path 13(c), each with the launches at that n); the
-last line is {"ok": true, "device": {...}}.
+particle-Schur core of path 13(c), each with the launches at that n;
+`gj_tangent` and `dchain_tangent` are K1ᵗ and K3ᵗ, with their launches on
+path 14 and, beside the record's keys, the two-torch.bmm yardstick
+`bmm_ms`; they replace no TPU kernel of their own: their `replaces` names
+the TPU kernel whose Pallas JVP they stand for); the last line is
+{"ok": true, "device": {...}}.
 """
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -164,14 +190,17 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 ORACLE = os.path.join(HERE, "tests", "data", "oracle_lco_1c.npz")
 
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, FP32 outside the tensor
-# cores (the kernel does scalar FMAs)
+# cores (the kernels do scalar FMAs; TF32 would round), and FP64 on the
+# tensor cores (IEEE double FMA, the card's fastest float64 rate: twice the
+# 34 TFLOP/s outside them)
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOP_PER_S = 67e12
+PEAK_FP64_FLOP_PER_S = 67e12
 # spin that holds the stream while the host queues timed launches: 1.2e8
 # cycles, at least 60 ms at the H100's 1.98 GHz boost clock
 SPIN_CYCLES = 120_000_000
 ROTATING = 4        # input buffers rotated in the K1 and K3 timings (82 MB)
-# warm runs of each path (one, to keep the script inside its time limit;
+# warm runs of paths 1 and 2 (one, to keep the script inside its time limit;
 # main_path.py profiles three a path)
 EARLY_WARM = 1
 K2_ROTATING = 16    # and in K2's (60-66 MB at either main-path shape)
@@ -179,6 +208,18 @@ K2_ROTATING = 16    # and in K2's (60-66 MB at either main-path shape)
 
 class SmokeFailure(Exception):
     pass
+
+
+_MARKS = [("start", T_START)]
+
+
+def mark(name):
+    """The end of a phase: phase_walls() reads the walls between marks."""
+    _MARKS.append((name, time.time()))
+
+
+def phase_walls():
+    return [(b[0], b[1] - a[1]) for a, b in zip(_MARKS, _MARKS[1:])]
 
 
 def check(cond, msg):
@@ -298,10 +339,11 @@ def _equilibrated_inputs(B, n, dtype, seed):
     return _equilibrate(A)[0].contiguous()
 
 
-def _bound(n_bytes, flops):
-    """(bound ms, bound_by) of work that moves n_bytes and does flops."""
+def _bound(n_bytes, flops, fp64=False):
+    """(bound ms, bound_by) of work that moves n_bytes and does flops, at the
+    card's float32 peak (or with `fp64` its float64 peak, PEAK_FP64_FLOP_PER_S)."""
     bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
-    flops_ms = flops / PEAK_FP32_FLOP_PER_S * 1e3
+    flops_ms = flops / (PEAK_FP64_FLOP_PER_S if fp64 else PEAK_FP32_FLOP_PER_S) * 1e3
     return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms else "operations")
 
 
@@ -641,12 +683,6 @@ def phase_main(card):
     return launches, results["path 1"]
 
 
-def _walls_line(walls):
-    import statistics
-    med = statistics.median(walls)
-    return med, (max(walls) - min(walls)) / med, ", ".join(f"{w:.3f}" for w in walls)
-
-
 def phase_simulate(card, oracle):
     """Path 3: the golden single-cell flow through `simulate` on the card
     in float64 (default route, K1 for the 71x71 core): discharge, rest,
@@ -734,15 +770,6 @@ def phase_simulate(card, oracle):
     print(f"simulate phase: {launches} K1 launches")
     check(launches > 0, "the simulate phase never launched K1")
 
-    walls = []
-    for _ in range(EARLY_WARM):
-        s, w = mp.run_single(p)
-        walls.append(w)
-    med, spread, ws = _walls_line(walls)
-    r = s.results[-1]
-    print(f"path 3 (warm, {len(walls)} single-cell float64 discharges): walls {ws} s, "
-          f"median {med:.3f} s, spread {spread:.1%}; steps {r.n_steps}, attempts "
-          f"{r.n_steps + r.n_rejected} [{card}]")
     return launches, (t_end, V_end)
 
 
@@ -785,14 +812,6 @@ def phase_tstops(card, oracle, path1):
     check(worst <= 1e-2, f"tstops: a stop missed by {worst} s")
     check(abs(t_end - float(oracle["t_end"])) <= 5.0, "tstops: cell 0 exit time off the oracle")
     check(abs(V_end - float(oracle["V_end"])) <= 8e-3, "tstops: cell 0 V_end off the oracle")
-    walls = []
-    for _ in range(EARLY_WARM):
-        res2, w = mp.run_tstops(p, seed=0)
-        walls.append(w)
-    check(bool((res2.flag.cpu().numpy() == 3).all()), "tstops warm run: bad flags")
-    med, spread, ws = _walls_line(walls)
-    print(f"path 4 (warm, {len(walls)} runs of one batch): walls {ws} s, median "
-          f"{med:.3f} s = {mp.B_MAIN / med:.1f} discharges/s, spread {spread:.1%} [{card}]")
     return launches
 
 
@@ -824,7 +843,6 @@ def check_gitt(res, t_off, tf):
 def phase_gitt(card):
     """Path 5: the batched GITT pulse. Returns the K1 launches of its first
     run."""
-    import numpy as np
     from petlion_tpu_torch import main_path as mp
     from petlion_tpu_torch.ops import gj_kernel as gk
     from petlion_tpu_torch.solver import run as runner
@@ -846,17 +864,6 @@ def phase_gitt(card):
           f"attempts/cell mean {att.mean():.2f} max {att.max():.0f}")
     check(launches > 0, "the gitt phase never launched K1")
     check(trips["reinit"] > 0, "the gitt phase never re-initialized")
-    walls = []
-    for _ in range(EARLY_WARM):
-        res2, w = mp.run_gitt(p, seed=0)
-        walls.append(w)
-    check_gitt(res2, t_off, mp.GITT_TF)
-    med, spread, ws = _walls_line(walls)
-    s2 = res2.n_steps.cpu().numpy().astype(float)
-    a2 = s2 + res2.n_rejected.cpu().numpy()
-    print(f"path 5 (warm, {len(walls)} runs of one batch): walls {ws} s, median {med:.3f} s "
-          f"= {mp.B_MAIN / med:.1f} discharges/s, spread {spread:.1%}; steps/cell mean "
-          f"{s2.mean():.2f}, attempts/cell mean {a2.mean():.2f} max {a2.max():.0f} [{card}]")
     return launches
 
 
@@ -907,14 +914,6 @@ def phase_cccv(card):
           f"{sP.results[0].n_steps}; eta_p = 0.05 V, 60 s: {wE:.3f} s, eta_p_end {eta:.9f}, "
           f"steps {sE.results[0].n_steps}; cccv phase: {launches} K1 launches")
     check(launches > 0, "the cccv phase never launched K1")
-    walls = []
-    for _ in range(EARLY_WARM):
-        s2, w = mp.run_cccv(p)
-        walls.append(w)
-    check_cccv(s2)
-    med, spread, ws = _walls_line(walls)
-    print(f"path 6 (warm, {len(walls)} CC→CV pairs): walls {ws} s, median {med:.3f} s, "
-          f"spread {spread:.1%} [{card}]")
     return launches
 
 
@@ -1013,7 +1012,7 @@ def check_sei(res, p, name):
 def phase_sei(card):
     """Path 7 (NMC with SEI aging, 256 cells, float32): the default route
     with K1 at the 92-state core, cell 0 against the same cell in float64
-    on the card, the full-kernel route (K2, K3) against it, a warm run.
+    on the card, the full-kernel route (K2, K3) against it.
     Returns (launches of route 1, launches of route 2)."""
     import numpy as np
     import torch
@@ -1082,25 +1081,17 @@ def phase_sei(card):
           f"({s64.final_exit_reason()!r})")
     check(dv64 <= 2e-3, f"path 7 cell 0: {dv64} V off the float64 run")
 
-    walls = []
-    for _ in range(EARLY_WARM):
-        r, w = mp.run_sei(p, seed=1)
-        walls.append(w)
-    check_sei(r, p, "path 7 warm run")
-    med, spread, ws = _walls_line(walls)
-    s = r.n_steps.cpu().numpy().astype(float)
-    a = s + r.n_rejected.cpu().numpy()
-    print(f"path 7 (warm, {len(walls)} runs of one batch): walls {ws} s, median {med:.3f} s "
-          f"= {mp.SEI_B / med:.1f} discharges/s, spread {spread:.1%}; steps/cell mean "
-          f"{s.mean():.2f}, attempts/cell mean {a.mean():.2f} max {a.max():.0f} [{card}]")
     return launches1, by_n1, launches2
 
 
-SEI_CYCLING_EXITS = ["Above max. SOC"] + ["Below min. SOC", "Above max. SOC"] * 3
+# one cycle of the suite's three (the script's time limit; main_path.py runs three)
+SEI_CYCLES = 1
+SEI_CYCLING_EXITS = ["Above max. SOC"] + ["Below min. SOC", "Above max. SOC"] * SEI_CYCLES
 
 
 def phase_sei_cycling(card):
-    """The SEI cycling chain (3.5 cycles) on one float32 cell: the exit
+    """The SEI cycling chain (SEI_CYCLES cycles of the suite's three) on one
+    float32 cell: the exit
     sequence of the JAX suite's 4_sei_cycling, SOH non-increasing over the
     chain, the final SOH within 1e-5 (relative) of the float64 chain on the
     card. Returns the K1 launches of the float32 chain."""
@@ -1113,7 +1104,7 @@ def phase_sei_cycling(card):
     for dtype in (torch.float32, torch.float64):
         p = mp.sei_model(device="cuda", dtype=dtype)
         gk.reset_launch_counts()
-        sol, wall = mp.run_sei_cycling(p)
+        sol, wall = mp.run_sei_cycling(p, cycles=SEI_CYCLES)
         if dtype == torch.float32:
             launches = gk.LAUNCHES["gj_inverse"]
         soh = np.asarray(sol.arrays["SOH"], dtype=np.float64)[:, 0]
@@ -1195,9 +1186,6 @@ def phase_variants(card):
     return k1
 
 
-PEAK_FP64_FLOP_PER_S = 34e12   # H100 SXM FP64 outside the tensor cores (data sheet)
-
-
 def phase_k1_core121(cores):
     """K1 at path 9's thermal core (121 states) in float64, the `<16, 8>`
     instance no earlier path ran: random equilibrated matrices at (128, 121)
@@ -1252,7 +1240,8 @@ def phase_k1_core121(cores):
         print(f"K1 timing ({B}, {n}) f64, {rot} rotating inputs: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, torch.linalg.inv_ex {library_ms:.4f} ms, bound "
               f"{bound_ms:.4f} ms ({by}: {2 * B * n * n * 8 / 1e6:.2f} MB = {bytes_ms:.4f} ms, "
-              f"{2 * n ** 3 * B / 1e9:.4f} GFLOP = {ops_ms:.4f} ms at FP64 34 TFLOP/s; "
+              f"{2 * n ** 3 * B / 1e9:.4f} GFLOP = {ops_ms:.4f} ms at FP64 "
+              f"{PEAK_FP64_FLOP_PER_S / 1e12:.0f} TFLOP/s; "
               f"{bound_ms / ms:.1%} of it reached); host {host_us:.1f} us per call")
         shapes.append(dict(shape=[B, n, n], ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                            bound_ms=bound_ms, bound_by=by))
@@ -1289,9 +1278,8 @@ def phase_solver_options(card, oracle, path1, k1_path1):
     on which some cell starts a chunk) and with step_control="ida": every
     cell flag 0, 1 or 3, cell 0 within 5 s and 8e-3 V of the oracle, K1
     launched; factorizations per cell (fewer than attempts under reuse),
-    attempts and rejections per cell beside path 1's; one warm wall each.
+    attempts and rejections per cell beside path 1's.
     Returns the K1 launches of the two first runs."""
-    import numpy as np
     from petlion_tpu_torch import main_path as mp
     p = mp.model(device="cuda")
     k1 = {}
@@ -1305,13 +1293,6 @@ def phase_solver_options(card, oracle, path1, k1_path1):
         if opts is mp.REUSE_OPTS:
             check(fac.mean() < att.mean() and fac.max() <= att.max(),
                   f"{label}: {fac.mean()} factorizations per cell for {att.mean()} attempts")
-        res2, walls, med, spread = mp.warm_walls(p, seed=1, route=mp.PATH1,
-                                                 runs=EARLY_WARM, **opts)
-        check(bool(np.isin(res2.flag.cpu().numpy(), (0, 1, 3)).all()),
-              f"{label} warm run: bad flags")
-        print(f"{label} (warm, {len(walls)} runs of one batch): walls "
-              f"{', '.join(f'{w:.3f}' for w in walls)} s, median {med:.3f} s = "
-              f"{mp.B_MAIN / med:.1f} discharges/s [{card}]")
     return sum(k1.values())
 
 
@@ -1432,7 +1413,7 @@ def phase_protocol(card):
     (2C to V_max 4.1 V) then CV (V held to SOC 1) in float32 on the default
     route: every cell leaves CC at V_max (flag 2) and CV at SOC_max (flag
     4), its final SOC within 2e-3 of 1, K1 launched at n = 71; the spread of
-    switch times; a warm wall gives protocols/s. Returns the K1
+    switch times. Returns the K1
     launches of the first run."""
     import numpy as np
     from petlion_tpu_torch import main_path as mp
@@ -1466,14 +1447,6 @@ def phase_protocol(card):
           f"{t_sw.std():.4f} s); final SOC max |1 - SOC| {np.abs(soc - 1).max():.2e}; "
           f"attempts/cell CC {att[0].mean():.2f}, CV {att[1].mean():.2f}")
     check(by_n.get(71, 0) > 0, "path 8 never launched K1 at n = 71")
-    walls = []
-    for _ in range(EARLY_WARM):
-        r2, w = mp.run_protocol(p, seed=1)
-        walls.append(w)
-    checked(r2, "path 8 warm run")
-    med, spread, ws = _walls_line(walls)
-    print(f"path 8 (warm, {len(walls)} protocols of one batch): walls {ws} s, median "
-          f"{med:.3f} s = {mp.B_MAIN / med:.1f} protocols/s, spread {spread:.1%} [{card}]")
     return launches
 
 
@@ -1489,8 +1462,7 @@ def phase_thermal(card):
     to the CPU's run to 1e-9 V, and the full-kernel route's run (K2 groups,
     K3 chain on the 121 core) within twice the CPU's own gap between the two
     routes of the CPU's full-kernel run, the two routes' gap printed on both
-    devices. Walls:
-    one warm run of each. Returns (K1 launches at
+    devices. Returns (K1 launches at
     n = 121 of the float64 run, the float32 run's LU factorizations)."""
     import numpy as np
     import torch
@@ -1528,14 +1500,6 @@ def phase_thermal(card):
           f"{lu32} pivoted LU factorizations, {k1_32} K1 launches")
     check32(s32, "path 9 float32")
     check(lu32 > 0, "path 9 float32 never took the pivoted LU")
-    walls = []
-    for _ in range(EARLY_WARM):
-        s, w = mp.run_thermal(p32)
-        walls.append(w)
-    check32(s, "path 9 float32 warm run")
-    med, spread, ws = _walls_line(walls)
-    print(f"path 9 float32 (warm, {len(walls)} runs): walls {ws} s, median {med:.3f} s, "
-          f"spread {spread:.1%} [{card}]")
 
     p64 = mp.thermal_model(dtype=torch.float64)
     gk.reset_launch_counts()
@@ -1552,8 +1516,6 @@ def phase_thermal(card):
     check(abs(Tm - 298.846) < 0.1, f"path 9 float64: mean T {Tm}")
     check(by_n.get(121, 0) > 0 and by_n.get(71, 0) > 0,
           "path 9 float64 never launched K1 at the 121-state core and the init block")
-    s, w64 = mp.run_thermal(p64)
-    print(f"path 9 float64 (warm, 1 run): {w64:.3f} s [{card}]")
 
     # card = CPU, as |dV| in volts: the default route (K1) to 1e-9 V. The
     # full-kernel route is held to twice the gap between the two routes'
@@ -1618,6 +1580,292 @@ def phase_thermal_batched(card):
     return lu
 
 
+# the tangent kernels (forward-mode parameter estimation, path 14)
+TANGENT_KERNELS = ("gj_tangent", "dchain_tangent")
+
+
+def guard_tangent_launches():
+    """From here on every reset of the launch counts checks that no tangent
+    kernel launched since the last one: paths 1-13 take no tangent. Returns
+    a function that lifts the check (for path 14)."""
+    from petlion_tpu_torch.ops import gj_kernel as gk
+    reset = gk.reset_launch_counts
+    state = {"on": True}
+
+    def checked_reset():
+        stray = {k: gk.LAUNCHES[k] for k in TANGENT_KERNELS if gk.LAUNCHES[k]}
+        check(not (state["on"] and stray), f"a plain path launched tangent kernels: {stray}")
+        reset()
+
+    gk.reset_launch_counts = checked_reset
+    return lambda: state.update(on=False)
+
+
+def _scaled(got, ref):
+    return float((got.double() - ref).abs().max()) / float(ref.abs().max())
+
+
+def phase_k1t():
+    """K1ᵗ (csrc/gj_tangent.cu, dX = −X·dA·X) against its plain version at
+    (B, n) = (1, 71), (2, 71) in float64 (path 14's shapes: one cell a fitted
+    parameter), (1024, 71) in float32, (10240, 10) and (1024, 30) in float32
+    and float64 (K2's tangent), on equilibrated random matrices and their
+    inverses: in float64 within 1e-10 of the tangent's scale; in float32 its
+    error against float64 at most 4× the plain float32 version's plus 1e-5.
+    Each shape timed over rotating inputs behind the spin, beside its bound,
+    the plain version and a yardstick of two torch.bmm calls (−(X·dA)·X,
+    which the port never calls)."""
+    import numpy as np
+    import torch
+    from petlion_tpu_torch.ops import gj_kernel as gk
+    cases = (((1, 71), torch.float64), ((2, 71), torch.float64), ((1024, 71), torch.float32),
+             ((10240, 10), torch.float32), ((10240, 10), torch.float64),
+             ((1024, 30), torch.float32), ((1024, 30), torch.float64))
+    shapes, worst = [], 0.0
+    for (B, n), dtype in cases:
+        A = _equilibrated_inputs(B, n, torch.float64, seed=B * 100 + n)
+        X = torch.linalg.inv(A).contiguous()
+        dA = torch.as_tensor(np.random.default_rng(B + n).standard_normal((B, n, n)),
+                             device="cuda")
+        ref = gk.gj_tangent_plain(X, dA)
+        got = gk.gj_tangent_cuda(X.to(dtype), dA.to(dtype))
+        err = _scaled(got, ref)
+        if dtype == torch.float64:
+            plain_err = None
+            check(err <= 1e-10, f"K1t f64 ({B}, {n}) off its plain version: {err}")
+        else:
+            plain_err = _scaled(gk.gj_tangent_plain(X.float(), dA.float()), ref)
+            check(err <= 4 * plain_err + 1e-5, f"K1t f32 ({B}, {n}): {err} vs plain {plain_err}")
+        worst = max(worst, float((got - gk.gj_tangent_plain(X.to(dtype), dA.to(dtype)))
+                                 .abs().max()))
+        size = torch.empty(0, dtype=dtype).element_size()
+        rot = max(4, -(-60_000_000 // (2 * B * n * n * size)))
+        bufs = [(X.to(dtype), (dA * (1 + i)).to(dtype)) for i in range(min(rot, 64))]
+        ms, host_us = device_ms(lambda a: gk.gj_tangent_cuda(*a), bufs, reps=200)
+        plain_ms, _ = device_ms(lambda a: gk.gj_tangent_plain(*a), bufs, reps=20, spin=False)
+        bmm_ms, _ = device_ms(lambda a: torch.bmm(torch.bmm(a[0], a[1]), a[0]), bufs, reps=20)
+        bound_ms, by = _bound(3 * B * n * n * size, 4 * n ** 3 * B, dtype == torch.float64)
+        tag = str(dtype)[6:]
+        print(f"K1t {tag} ({B}, {n}): error vs float64 plain / scale {err:.3e}"
+              f"{'' if plain_err is None else f' (plain f32 {plain_err:.3e})'}; kernel "
+              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, two torch.bmm {bmm_ms:.4f} ms, bound "
+              f"{bound_ms:.4f} ms ({by}; {bound_ms / ms:.1%} of it reached); host "
+              f"{host_us:.1f} us per call")
+        shapes.append(dict(shape=[B, n, n], dtype=tag, ms=ms, plain_ms=plain_ms,
+                           bmm_ms=bmm_ms, library_ms=None, bound_ms=bound_ms, bound_by=by))
+    regs = {nq: _ptxas_instance(gk.BUILD_LOGS.get("gj_tangent", ""),
+                                f"gj_tangent_kernelIdLi{nq}E") for nq in (1, 2, 5)}
+    print(f"K1t double instances (NQ: registers, spill bytes): {regs}")
+    first = shapes[0]
+    return dict(max_abs_err=worst, **{k: first[k] for k in ("ms", "plain_ms", "library_ms",
+                                                            "bound_ms", "bound_by")},
+                bmm_ms=first["bmm_ms"], shape=first["shape"], shapes=shapes)
+
+
+def _dchain_tangent_flops(n, sizes):
+    """Operations of the chain's tangent on one core: per level the two
+    products of d invA (4 nk^3), d AinvB (4 nk^2 r), the tangent's Schur
+    update (4 r^2 nk) and, before the last level, the primal's (2 r^2 nk);
+    then the core inverse's tangent (4 m^3)."""
+    f, m = 0, n
+    for i, nk in enumerate(sizes):
+        r = m - nk
+        f += 4 * nk ** 3 + 4 * nk * nk * r + 4 * r * r * nk
+        if i + 1 < len(sizes):
+            f += 2 * r * r * nk
+        m = r
+    return f + 4 * m ** 3
+
+
+def phase_k3t(Dp, sizes):
+    """K3ᵗ (csrc/dchain_tangent.cu) on the permuted Schur cores of real
+    Newton matrices (the cores phase_k3 takes, levels (20, 20)) with K3's
+    outputs and a tangent of the cores' pattern (a numpy seed), at B = 1
+    (path 14's shape), 5 and 1024 cells: in float64 every output's tangent
+    within 1e-10 of its scale from the plain version's, in float32 as close
+    to the float64 tangent as the plain float32 version (4× plus 1e-5). The
+    time at (1, 71) float64 and (1024, 71) float32 and float64, beside the
+    bound, the plain version and two torch.bmm at the core's size."""
+    import numpy as np
+    import torch
+    from petlion_tpu_torch.ops import dchain as kd
+    worst = 0.0
+    rng = np.random.default_rng(5)
+    dDp = Dp * torch.as_tensor(rng.standard_normal(Dp.shape))
+    for B in (1, 5, 1024):
+        reps = -(-B // Dp.shape[0])
+        D = Dp.to("cuda").repeat(reps, 1, 1)[:B].contiguous()
+        dD = dDp.to("cuda").repeat(reps, 1, 1)[:B].contiguous()
+        ref = kd.dchain_tangent_plain(D, dD, kd.dchain_plain(D, sizes), sizes)
+        for dtype in (torch.float64, torch.float32):
+            Dt, dDt = D.to(dtype), dD.to(dtype)
+            got = kd.dchain_tangent_cuda(Dt, dDt, kd.dchain_cuda(Dt, sizes), sizes)
+            plain = kd.dchain_tangent_plain(Dt, dDt, kd.dchain_plain(Dt, sizes), sizes)
+            errs = [_scaled(g, r) for g, r in zip(got, ref)]
+            perrs = [_scaled(q, r) for q, r in zip(plain, ref)]
+            for i, (e, pe) in enumerate(zip(errs, perrs)):
+                if dtype == torch.float64:
+                    check(e <= 1e-10, f"K3t f64 B={B} output {i}: {e}")
+                else:
+                    check(e <= 4 * pe + 1e-5, f"K3t f32 B={B} output {i}: {e} vs plain {pe}")
+            if dtype == torch.float64:
+                worst = max(worst, max(float((g - q).abs().max()) for g, q in zip(got, plain)))
+            print(f"K3t {str(dtype)[6:]} B={B}: tangent error / scale per output "
+                  f"{', '.join(f'{e:.2e}' for e in errs)}"
+                  + ("" if dtype == torch.float64 else
+                     f" (plain f32 {', '.join(f'{e:.2e}' for e in perrs)})"))
+    n = Dp.shape[-1]
+    shapes_out = kd.out_shapes(n, sizes)
+    oe = sum(a * b for a, b in shapes_out)
+    # read: D, dD and of K3's outputs each level's invA and AinvB and the core
+    # inverse X (each level's C it takes from D); written: a tangent an output
+    oe_read = oe - sum(a * b for a, b in shapes_out[2:-1:3])
+    shapes = []
+    for B, dtype in ((1, torch.float64), (1024, torch.float64), (1024, torch.float32)):
+        size = torch.empty(0, dtype=dtype).element_size()
+        reps = -(-B // Dp.shape[0])
+        rot = 64 if B == 1 else ROTATING
+        bufs = []
+        for i in range(rot):
+            D = Dp.to("cuda", dtype).repeat(reps, 1, 1)[:B].contiguous()
+            dD = (dDp * (1 + i)).to("cuda", dtype).repeat(reps, 1, 1)[:B].contiguous()
+            bufs.append((D, dD, kd.dchain_cuda(D, sizes)))
+        ms, host_us = device_ms(lambda a: kd.dchain_tangent_cuda(*a, sizes), bufs, reps=200)
+        plain_ms, _ = device_ms(lambda a: kd.dchain_tangent_plain(*a, sizes), bufs, reps=8,
+                                spin=False)
+        bmm_ms, _ = device_ms(lambda a: torch.bmm(torch.bmm(a[0], a[1]), a[0]), bufs, reps=20)
+        n_bytes = (2 * n * n + oe_read + oe) * size * B
+        bound_ms, by = _bound(n_bytes, _dchain_tangent_flops(n, sizes) * B,
+                              dtype == torch.float64)
+        tag = str(dtype)[6:]
+        print(f"K3t timing ({B}, {n}, {n}) sizes {tuple(sizes)} {tag}, {rot} rotating inputs: "
+              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, two torch.bmm at ({B}, {n}, {n}) "
+              f"{bmm_ms:.4f} ms, no single PyTorch call computes the tangent; bound "
+              f"{bound_ms:.4f} ms ({by}: {n_bytes / 1e6:.3f} MB, "
+              f"{_dchain_tangent_flops(n, sizes) * B / 1e9:.4f} GFLOP; {bound_ms / ms:.1%} of "
+              f"it reached); host {host_us:.1f} us per call")
+        shapes.append(dict(shape=[B, n, n], dtype=tag, sizes=list(sizes), ms=ms,
+                           plain_ms=plain_ms, bmm_ms=bmm_ms, library_ms=None,
+                           bound_ms=bound_ms, bound_by=by))
+    first = shapes[0]
+    return dict(max_abs_err=worst, **{k: first[k] for k in ("ms", "plain_ms", "library_ms",
+                                                            "bound_ms", "bound_by")},
+                bmm_ms=first["bmm_ms"], shape=first["shape"], shapes=shapes)
+
+
+def _sens_run(p, route=None):
+    """Path 14's sensitivities (the JAX package's tests/test_estimation.py:18)
+    on `p`'s device, with the launch and trip counts set to 0 just before and
+    read just after: (J, θ0, wall, launches by kernel and n, trips)."""
+    import numpy as np
+    import torch
+    from petlion_tpu_torch import estimation as est
+    from petlion_tpu_torch.ops import gj_kernel as gk
+    from petlion_tpu_torch.solver import run as runner
+    gk.reset_launch_counts()
+    runner.reset_trip_counts()
+    t0 = time.time()
+    J, th0 = est.sensitivities(p, ["D_sp"], np.array([100.0, 300.0, 550.0]), I_crate=-1.0,
+                               SOC=0.5, route=route)
+    if p.device.type == "cuda":
+        torch.cuda.synchronize()
+    wall = time.time() - t0
+    launches = {k: dict(v) for k, v in gk.LAUNCHES_BY_N.items() if v}
+    return J, th0, wall, launches, runner.TRIPS["trips"]
+
+
+def phase_estimation(card):
+    """Path 14, parameter estimation in float64 (see the module docstring).
+    Returns the tangent kernels' launches over the path, by kernel."""
+    import numpy as np
+    import torch
+    import petlion_tpu_torch as ptt
+    from petlion_tpu_torch import estimation as est
+    from petlion_tpu_torch.ops import gj_kernel as gk
+    from petlion_tpu_torch.ops.plan import FULL_KERNEL_ROUTE
+    from petlion_tpu_torch.solver import run as runner
+
+    p = ptt.petlion(ptt.LCO, device="cuda")
+    launched = {k: 0 for k in TANGENT_KERNELS}
+    # (a) the default route: K1 and K1ᵗ at n = 71
+    J, th0, wall_a, la, trips_a = _sens_run(p)
+    print(f"path 14(a) sensitivities, default route: dV/dD_sp at 100, 300, 550 s = "
+          f"{', '.join(f'{x:.10e}' for x in J[:, 0])}; {wall_a:.3f} s cold, {trips_a} trips; "
+          f"launches by n {la} [{card}]")
+    check(la.get("gj_tangent", {}).get(71, 0) > 0, "path 14(a) never launched K1t at n = 71")
+    check(not la.get("dchain_tangent"), "path 14(a) launched K3t on the default route")
+    for k in TANGENT_KERNELS:
+        launched[k] += sum(la.get(k, {}).values())
+    voltage, _ = est.make_voltage_model(p, ["D_sp"], t_eval=np.array([100.0, 300.0, 550.0]),
+                                        I_crate=-1.0, SOC=0.5)
+    th = torch.as_tensor(th0, dtype=torch.float64, device="cuda")
+    eps = 1e-18
+    t0 = time.time()
+    Vpm = voltage(torch.stack([th + eps, th - eps]))
+    torch.cuda.synchronize()
+    fd = ((Vpm[0] - Vpm[1]) / (2 * eps)).cpu().numpy()
+    fd_err = float(np.max(np.abs(J[:, 0] - fd) / np.abs(fd)))
+    print(f"  central difference on the card (eps 1e-18, one run of two cells, "
+          f"{time.time() - t0:.3f} s): {', '.join(f'{x:.10e}' for x in fd)}; max rel "
+          f"{fd_err:.3e} (rtol 1e-5)")
+    check(fd_err <= 1e-5, f"path 14(a) off the central difference: {fd_err}")
+    J_cpu, _, wall_cpu, _, trips_cpu = _sens_run(ptt.petlion(ptt.LCO, device="cpu"))
+    cpu_err = float(np.max(np.abs(J - J_cpu) / np.abs(J_cpu)))
+    print(f"  the same on the CPU: {wall_cpu:.3f} s, {trips_cpu} trips; card vs CPU max rel "
+          f"{cpu_err:.3e} (rtol 1e-8)")
+    check(cpu_err <= 1e-8, f"path 14(a): card off the CPU by {cpu_err}")
+
+    # (b) the full-kernel route: K2, K3 and their tangents K1ᵗ (n = 10, 30), K3ᵗ
+    Jb, _, wall_b, lb, trips_b = _sens_run(p, FULL_KERNEL_ROUTE)
+    b_err = float(np.max(np.abs(Jb - J) / np.abs(J)))
+    print(f"path 14(b) sensitivities, full-kernel route: {wall_b:.3f} s cold, {trips_b} trips; "
+          f"vs (a) max rel {b_err:.3e} (rtol 1e-7); launches by n {lb} [{card}]")
+    for n in (10, 30):
+        check(lb.get("gj_tangent", {}).get(n, 0) > 0, f"path 14(b) never launched K1t at n = {n}")
+    check(sum(lb.get("dchain_tangent", {}).values()) > 0, "path 14(b) never launched K3t")
+    check(b_err <= 1e-7, f"path 14(b) off (a) by {b_err}")
+    for k in TANGENT_KERNELS:
+        launched[k] += sum(lb.get(k, {}).values())
+
+    # (c) the JAX package's Gauss-Newton recovery (tests/test_estimation.py:31)
+    true = {"D_sp": 1.7e-14, "k_n": 3.1e-11}
+    t_data = np.linspace(60.0, 1700.0, 24)
+    pc = ptt.petlion(ptt.LCO, device="cuda")
+    for k, v in true.items():
+        pc.theta[k] = torch.tensor(v, dtype=torch.float64, device="cuda")
+    voltage, th_true = est.make_voltage_model(pc, list(true), t_eval=t_data, I_crate=-1.0,
+                                              SOC=0.9)
+    t0 = time.time()
+    V_data = voltage(th_true).cpu().numpy()
+    wall_data = time.time() - t0
+    pc.theta["D_sp"] = torch.tensor(1e-14, dtype=torch.float64, device="cuda")
+    pc.theta["k_n"] = torch.tensor(5.031e-11, dtype=torch.float64, device="cuda")
+    gk.reset_launch_counts()
+    runner.reset_trip_counts()
+    t0 = time.time()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):    # verbose prints each iteration's rms
+        fitted = est.fit(pc, list(true), t_data, V_data, I_crate=-1.0, SOC=0.9, iters=10,
+                         verbose=True)
+    torch.cuda.synchronize()
+    wall_c = time.time() - t0
+    rms = [line.split("rms=")[1] for line in out.getvalue().splitlines() if "rms=" in line]
+    lc = {k: dict(v) for k, v in gk.LAUNCHES_BY_N.items() if v}
+    errs = {k: abs(fitted[k] - v) / v for k, v in true.items()}
+    print(f"path 14(c) Gauss-Newton fit: data {wall_data:.3f} s; fit {wall_c:.3f} s, "
+          f"{len(rms)} iterations, {runner.TRIPS['trips']} trips; rms per iteration "
+          f"{', '.join(rms)}; fitted {fitted}; relative errors "
+          f"{errs}; launches by n {lc} [{card}]")
+    for k, e in errs.items():
+        check(e < 1e-3, f"path 14(c): {k} fitted {fitted[k]}, off by {e}")
+    check(lc.get("gj_tangent", {}).get(71, 0) > 0, "path 14(c) never launched K1t at n = 71")
+    for k in TANGENT_KERNELS:
+        launched[k] += sum(lc.get(k, {}).values())
+    print(f"path 14 walls: (a) {wall_a:.3f} s; (b) {wall_b:.3f} s; "
+          f"(c) {wall_c:.3f} s for {len(rms)} iterations; tangent launches {launched}")
+    return launched
+
+
 
 def main():
     import numpy as np
@@ -1629,36 +1877,69 @@ def main():
     try:
         card = phase_device()
         phase_build()
+        mark("build")
         from petlion_tpu_torch.main_path import newton_matrices
         D, Dp, sizes, groups = newton_matrices()
         k1 = phase_k1(D)
+        mark("K1")
         import petlion_tpu_torch as ptt
         D92 = newton_matrices(chemistry=ptt.NMC, aging="SEI")[0]
         D91 = newton_matrices(chemistry=ptt.NMC_LGM50, temperature=False,
                               aging="stress")[0]
         k1_92 = phase_k1_core92([("SEI", D92), ("stress", D91)])
+        mark("K1 n=92")
         D121 = newton_matrices(temperature=True, hold_dT=True)[0]
         k1_121 = phase_k1_core121(D121)
+        mark("K1 n=121")
         from petlion_tpu_torch.main_path import particle_schur_cores
         k1_101 = phase_k1_core101(particle_schur_cores())
+        mark("K1 n=101")
         k2 = phase_k2(groups)
+        mark("K2")
         _, Dp92, sizes92, _ = newton_matrices(chemistry=ptt.NMC, aging="SEI")
         k3 = phase_k3(Dp, sizes, (Dp92, sizes92))
+        mark("K3")
+        k1t = phase_k1t()
+        mark("K1t")
+        k3t = phase_k3t(Dp, sizes)
+        mark("K3t")
+        # paths 1-13 launch no tangent kernel: every reset checks it
+        from petlion_tpu_torch.ops import gj_kernel
+        for k in TANGENT_KERNELS:
+            gj_kernel.LAUNCHES[k] = 0
+        lift_tangent_guard = guard_tangent_launches()
         launches, path1 = phase_main(card)
+        mark("paths 1-2")
         oracle = np.load(ORACLE)
         k1_simulate, fast3 = phase_simulate(card, oracle)
+        mark("path 3")
         k1_tstops = phase_tstops(card, oracle, path1)
+        mark("path 4")
         k1_gitt = phase_gitt(card)
+        mark("path 5")
         k1_cccv = phase_cccv(card)
+        mark("path 6")
         sei1, sei1_by_n, sei2 = phase_sei(card)
+        mark("path 7")
         k1_cycling = phase_sei_cycling(card)
+        mark("sei cycling")
         k1_variants = phase_variants(card)
+        mark("variants")
         k1_protocol = phase_protocol(card)
+        mark("path 8")
         k1_thermal, lu_thermal = phase_thermal(card)
+        mark("path 9")
         lu_batched = phase_thermal_batched(card)
+        mark("path 10")
         k1_options = phase_solver_options(card, oracle, path1,
                                           launches["path 1"]["gj_inverse"])
+        mark("paths 11-12")
         k1_dense, k1_n101 = phase_dense(card, oracle, fast3)
+        mark("path 13")
+        gj_kernel.reset_launch_counts()     # the last check of paths 1-13
+        lift_tangent_guard()
+        tangent_launches = phase_estimation(card)
+        mark("path 14")
     except Exception:   # report any phase failure and exit non-zero
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
@@ -1673,6 +1954,7 @@ def main():
           f"K3 {sei2['dchain']}; path 9 float64 {k1_thermal} at n = 121; pivoted LU "
           f"factorizations: path 9 float32 {lu_thermal}, path 10's first chunk {lu_batched}; "
           f"paths 11-12 {k1_options}, path 13 {k1_dense} at n = 71 and {k1_n101} at n = 101")
+    print("phase walls: " + ", ".join(f"{name} {wall:.1f} s" for name, wall in phase_walls()))
     print(f"chip_smoke wall: {time.time() - T_START:.1f} s")
     records = [
         {"name": "gj_inverse", "route": "cuda",
@@ -1699,6 +1981,16 @@ def main():
          "source": "petlion_tpu_torch/csrc/dchain.cu",
          "replaces": "petlion_tpu/ops/pallas_schur.py:82",
          "launches": launches["path 2"]["dchain"], **k3},
+        # the tangents: the port's counterparts of Pallas's JVP of the same
+        # TPU kernels, which the JAX package's jax.jacfwd runs on a TPU
+        {"name": "gj_tangent", "route": "cuda",
+         "source": "petlion_tpu_torch/csrc/gj_tangent.cu",
+         "replaces": "petlion_tpu/ops/pallas_gj.py:57",
+         "launches": tangent_launches["gj_tangent"], **k1t},
+        {"name": "dchain_tangent", "route": "cuda",
+         "source": "petlion_tpu_torch/csrc/dchain_tangent.cu",
+         "replaces": "petlion_tpu/ops/pallas_schur.py:82",
+         "launches": tangent_launches["dchain_tangent"], **k3t},
     ]
     print(json.dumps({"kernels": records}))
     print(json.dumps({"ok": True, "device": {

@@ -12,6 +12,7 @@ Entry points run on CUDA unless the caller passes ``device="cpu"``.
     res = batch_simulate(p, 3.9e3, I=-1, SOC=1, theta_batch={...})
     sol = simulate_protocol(p, [dict(I=2, V_max=4.1), dict(V="hold")], SOC=0)
     rs  = batch_protocol(p, [...], SOC=0, theta_batch={...})  # per segment
+    J, th0 = estimation.sensitivities(p, ["D_sp"], t, I_crate=-1)  # ∂V/∂θ
 """
 
 from .chemistry import LCO, NMC, NMC_LGM50
@@ -31,9 +32,10 @@ from .physics.transport import (D_s_eff, D_s_eff_isothermal, rxn_rate,
 from .parallel.batch import batch_simulate
 from .physics.residuals import ModelConfig, calc_I1C, residual_core
 from .protocols import batch_protocol, simulate_protocol
-from .sim import (Model, calc_OCV, calc_R_internal, petlion, simulate,
-                  simulate_cont)
+from .sim import (Model, calc_OCV, calc_R_internal, default_dtype, petlion,
+                  simulate, simulate_cont)
 from .solution import RunResult, Solution, reset_t
+from . import estimation
 
 
 def final_exit_reason(sol: Solution) -> str:
@@ -56,7 +58,7 @@ __all__ = [
     "rxn_rate_isothermal", "D_eff", "D_eff_linear", "D_eff_linear_one_term",
     "K_eff", "K_eff_isothermal", "thermodynamic_factor",
     "thermodynamic_factor_linear", "kinetics", "ocv", "transport",
-    "simulate_protocol", "batch_protocol",
+    "simulate_protocol", "batch_protocol", "default_dtype", "estimation",
 ]
 
 # the JAX package's reference-name aliases, for what is ported

@@ -101,6 +101,19 @@ Three paths drive the solver options, on path 1's model and θ sweep:
   (the colored dense matrix and the equilibrated pivoted LU). Each dense
   Jacobian pass has N·B = 19,264 rows at 64 cells (308k at 1024).
 
+Path 14 is parameter estimation (``estimation.py``) in float64, the JAX
+package's ``tests/test_estimation.py:18``:
+
+* path 14, ``run_sensitivities``: ∂V/∂D_sp at ``SENS_T`` = 100, 300 and
+  550 s of a 1C discharge of one LCO cell from SOC 0.5, one forward-mode
+  run (a dual row) on path 1's route, K1 and its tangent K1ᵗ
+  (``gj_tangent``) at n = 71; ``path14b`` the same on the full-kernel
+  route (K2, K3 and their tangents: K1ᵗ at n = 10 and 30, K3ᵗ
+  ``dchain_tangent``). The Gauss–Newton fit is ``chip_smoke.py``'s 14(c).
+* ``path14m``: path 14's run with and without ``ops.dual.fast_zero_tangents``
+  (PyTorch's own meta kernels of add and mul for the zero tangents) in
+  turns, the walls alone (``light_meta_walls``).
+
 ``path10r`` is path 10's first chunk with ``jac_reuse=REUSE_K``, the case
 the JAX package's configuration recommends reuse for (the float32 thermal
 pivoted LU): profiled beside path 10's first chunk in one process.
@@ -110,7 +123,7 @@ kernels see, and ``particle_schur_cores`` the 101-state cores of path 13(c),
 for the tests and ``chip_smoke.py`` to hold the kernels on real inputs.
 ``chip_smoke.py`` checks these programs; run as a script,
 
-    python -m petlion_tpu_torch.main_path [path1|...|path13|path10r ...]
+    python -m petlion_tpu_torch.main_path [path1|...|path14|path14b|path14m|path10r ...]
 
 profiles each named path (path 1 and path 2 by default) on the card: one
 cold run, one warm run under ``torch.profiler`` (CPU and CUDA activities)
@@ -130,6 +143,7 @@ beside the JAX suite's TPU record, then profiles its first chunk;
 
 from __future__ import annotations
 
+import contextlib
 import statistics
 import subprocess
 import sys
@@ -138,6 +152,7 @@ import time
 import numpy as np
 import torch
 
+from . import estimation
 from .chemistry import LCO, NMC
 from .ops import gj_kernel
 from .ops.plan import FULL_KERNEL_ROUTE, Route, get_plan
@@ -176,8 +191,11 @@ REUSE_K = 6
 REUSE_OPTS = dict(jac_reuse=REUSE_K)
 IDA_OPTS = dict(step_control="ida")
 DENSE_B = 64
+SENS_T = (100.0, 300.0, 550.0)
 KERNEL_SYMBOLS = {"gj_inverse": "gj_inverse_kernel",
-                  "gj_blocks": "gj_blocks_kernel", "dchain": "dchain_kernel"}
+                  "gj_blocks": "gj_blocks_kernel", "dchain": "dchain_kernel",
+                  "gj_tangent": "gj_tangent_kernel",
+                  "dchain_tangent": "dchain_tangent_kernel"}
 
 
 def model(device="cuda") -> Model:
@@ -506,6 +524,9 @@ def _path_run(name: str, p: Model, seed: int):
                      else run_single(p, fast_solver=name == "path3"))
         return (np.array([sum(r.n_steps for r in sol.results)]),
                 np.array([sum(r.n_rejected for r in sol.results)]), wall)
+    if name in ("path14", "path14b"):
+        res, wall = run_sensitivities(p, route=PATH2 if name == "path14b" else PATH1)
+        return res.n_steps.cpu().numpy(), res.n_rejected.cpu().numpy(), wall
     if name == "path5":
         res, wall = run_gitt(p, seed, current=_counted_current)
     elif name == "path4":
@@ -522,6 +543,18 @@ def _path_run(name: str, p: Model, seed: int):
     else:
         res, wall = run(p, seed, route=PATHS[name])
     return res.n_steps.cpu().numpy(), res.n_rejected.cpu().numpy(), wall
+
+
+def run_sensitivities(p: Model, route: Route = PATH1):
+    """Path 14: ∂V/∂D_sp at SENS_T from SOC 0.5 at 1C by one forward-mode
+    run; (the run's RunResultDev, wall ending in a synchronization)."""
+    voltage, th0 = estimation.make_voltage_model(p, ["D_sp"], t_eval=SENS_T,
+                                                 I_crate=-1.0, SOC=0.5, route=route)
+    start = time.perf_counter()
+    res = estimation.value_and_jacobian(voltage, th0)[2]
+    if res.flag.is_cuda:
+        torch.cuda.synchronize()
+    return res, time.perf_counter() - start
 
 
 CURRENT_CALLS = [0]
@@ -541,7 +574,12 @@ def profile(p: Model, name: str, card: str):
     CURRENT_CALLS[0] = 0
     torch.cuda.reset_peak_memory_stats()
     from torch.profiler import ProfilerActivity, profile as tprofile
-    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    # a forward-mode trip dispatches ~44,000 host ops: recorded with CPU
+    # activity, path 14's profiled run did not end in 15 minutes, so its
+    # profile records the kernels alone
+    activities = ([ProfilerActivity.CUDA] if name.startswith("path14")
+                  else [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    with tprofile(activities=activities) as prof:
         steps, rejected, wall = _path_run(name, p, seed=1)
     peak = torch.cuda.max_memory_allocated()
     launches = dict(gj_kernel.LAUNCHES)
@@ -606,11 +644,15 @@ def main(names=("path1", "path2")):
             continue
         p = (sei_model() if name == "path7"
              else thermal_model() if name in ("path9", "path10", "path10r")
-             else p64 if name in ("path3", "path6", "path13a") else p32)
+             else p64 if name in ("path3", "path6", "path13a", "path14", "path14b")
+             else p32)
         if name == "path10":
             chunks_all(p, card)
         if name == "path10r":
             reuse_chunk(p, card)
+        if name == "path14m":
+            light_meta_walls(p64, card)
+            continue
         profile(p, name, card)
 
 
@@ -647,6 +689,31 @@ def reuse_chunk(p: Model, card: str):
               f"{wall:.3f} s warm [{card}]; {linsolve.LU_FACTORS[0]} pivoted LU "
               f"factorizations, attempts/cell mean {att.mean():.2f} max {att.max()}, "
               f"{runner.TRIPS['trips']} trips, {runner.TRIPS['factor_trips']} factored")
+
+
+def light_meta_walls(p: Model, card: str):
+    """Path 14's run with and without ``fast_zero_tangents`` in turns (with,
+    without, without, with, after one cold run of each): the walls, trips
+    and ∂V/∂D_sp of each; the Jacobians must agree bit for bit."""
+    light = estimation.fast_zero_tangents
+    Js = []
+    try:
+        for i, on in enumerate((True, False, True, False, False, True)):
+            estimation.fast_zero_tangents = light if on else contextlib.nullcontext
+            runner.reset_trip_counts()
+            voltage, th0 = estimation.make_voltage_model(p, ["D_sp"], t_eval=SENS_T,
+                                                         I_crate=-1.0, SOC=0.5, route=PATH1)
+            start = time.perf_counter()
+            J = estimation.value_and_jacobian(voltage, th0)[1].cpu()
+            wall = time.perf_counter() - start
+            Js.append(J)
+            print(f"== path14m {'cold' if i < 2 else 'warm'}, light meta kernels "
+                  f"{'on' if on else 'off'}: {wall:.3f} s, {runner.TRIPS['trips']} trips "
+                  f"[{card}]; dV/dD_sp {J[:, 0].tolist()}")
+    finally:
+        estimation.fast_zero_tangents = light
+    if not all(torch.equal(J, Js[0]) for J in Js):
+        raise SystemExit("path14m: the Jacobians differ with and without the light meta")
 
 
 if __name__ == "__main__":

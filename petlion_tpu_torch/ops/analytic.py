@@ -37,6 +37,7 @@ import torch
 
 from ..constants import FARADAY as F, IDEAL_GAS as R
 from ..physics.residuals import ModelConfig, active_material, calc_I1C, radial_rhs
+from .dual import detach, grad_leaf, grad_seed
 from .jacobian import last_row_grad
 
 
@@ -82,14 +83,16 @@ def _ds_depends_on_c(cfg: ModelConfig, theta_sample: dict) -> bool:
 def elementwise_derivatives(fn, *xs):
     """fn(*xs) and ∂fn/∂x for each x, where output k depends only on the
     k-th entries of the inputs (so the jvp with a tangent of ones is the
-    gradient of the sum). An input fn does not read gets zeros."""
+    gradient of the sum). An input fn does not read gets zeros. Forward-mode
+    tangents of the inputs and of what fn closes over are kept."""
     with torch.enable_grad():
-        xs_ = [x.detach().requires_grad_(True) for x in xs]
+        xs_ = [grad_leaf(x) for x in xs]
         out = fn(*xs_)
-        grads = (torch.autograd.grad(out.sum(), xs_, allow_unused=True)
+        total = out.sum()
+        grads = (torch.autograd.grad(total, xs_, grad_seed(total), allow_unused=True)
                  if out.requires_grad else (None,) * len(xs_))
-    return out.detach(), tuple(torch.zeros_like(x) if g is None else g
-                               for g, x in zip(grads, xs))
+    return detach(out), tuple(torch.zeros_like(x) if g is None else g
+                              for g, x in zip(grads, xs))
 
 
 class AnalyticJacobian:

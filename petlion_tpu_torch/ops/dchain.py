@@ -20,6 +20,14 @@ launches the kernel or raises. ``dchain_mirror`` is the same chain in the
 kernel's order of operations (reciprocal scalings, the in-place
 Gauss-Jordan), which the tests and ``chip_smoke.py`` hold the kernel
 against.
+
+Forward-mode tangents (``ops/dual.py``): a dual core goes through ``Chain``,
+an ``autograd.Function`` whose forward is the same dispatch and whose
+``jvp`` is the chain's tangent: ``csrc/dchain_tangent.cu`` (K3ᵗ, one thread
+block a cell) for a CUDA tensor, ``dchain_tangent_plain`` for a CPU tensor.
+K3ᵗ replaces no TPU kernel of its own: it is the port's counterpart of
+Pallas's JVP of ``_dchain_kernel``, which the JAX package's ``jax.jacfwd``
+runs on a TPU.
 """
 
 from __future__ import annotations
@@ -28,8 +36,9 @@ import ctypes
 
 import torch
 
+from .dual import has_tangent, primal, refuse
 from .gj_kernel import (MAX_SMEM_BYTES, check_launch, gj_inverse,
-                        gj_inverse_inplace, library)
+                        gj_inverse_inplace, gj_tangent_plain, library)
 
 MAX_LEVELS = 4      # csrc/dchain.cu kMaxLevels
 # largest inverse of the chain the kernel takes (csrc/dchain.cu max_m)
@@ -134,6 +143,7 @@ def check_sizes(n: int, sizes, dtype: torch.dtype):
 
 def dchain_cuda(D, sizes):
     """Launch K3 on a contiguous CUDA (B, n, n) f32/f64 permuted core."""
+    refuse("dchain_cuda", D)
     if D.device.type != "cuda":
         raise ValueError(f"dchain_cuda needs a CUDA tensor, got {D.device}")
     if D.dtype not in (torch.float32, torch.float64):
@@ -160,9 +170,134 @@ def dchain_cuda(D, sizes):
     return outs
 
 
-def dchain_hot(D, sizes):
-    """The chain on a (B, n, n) permuted core: K3 for a CUDA tensor, the
-    plain version for a CPU tensor."""
+def _dchain_dispatch(D, sizes):
     if D.device.type == "cpu":
         return dchain_plain(D, sizes)
     return dchain_cuda(D.contiguous(), sizes)
+
+
+def dchain_hot(D, sizes):
+    """The chain on a (B, n, n) permuted core: K3 for a CUDA tensor, the
+    plain version for a CPU tensor; a dual `D` through ``Chain`` (its
+    tangent by K3ᵗ on the card)."""
+    if has_tangent(D):
+        return Chain.apply(D, tuple(int(s) for s in sizes))
+    return _dchain_dispatch(D, sizes)
+
+
+# ---------------------------------------------------------------------------
+# the tangent: K3ᵗ and its plain version
+# ---------------------------------------------------------------------------
+
+_T_LAUNCHERS = {f"dchain_tangent_{t}": [_P, _P, ctypes.POINTER(ctypes.c_void_p),
+                                        ctypes.POINTER(ctypes.c_void_p),
+                                        ctypes.POINTER(ctypes.c_int), _I, _I, _I, _P]
+                for t in ("f32", "f64")}
+
+
+def dchain_tangent_plain(D, dD, outs, sizes):
+    """The chain's tangent along dD, (B, n, n), from the core D and the
+    chain's outputs `outs` (in ``out_shapes`` order); per level of the
+    current core [A B; C D22] and its tangent [dA dB; dC dD22]:
+    d invA = −(invA·dA)·invA, d AinvB = d invA·B + invA·dB, dC, then
+    dD ← dD22 − (dC·AinvB + C·d AinvB) and D ← D22 − C·AinvB; last the
+    core inverse's −(X·dD)·X. The tangents come in the outputs' order."""
+    touts = []
+    M, dM = D, dD
+    for L, nk in enumerate(sizes):
+        invA, AinvB = outs[3 * L], outs[3 * L + 1]
+        C, dA, dC = M[:, nk:, :nk], dM[:, :nk, :nk], dM[:, nk:, :nk]
+        dinvA = gj_tangent_plain(invA, dA)
+        dAinvB = torch.matmul(dinvA, M[:, :nk, nk:]) + torch.matmul(invA, dM[:, :nk, nk:])
+        dM = dM[:, nk:, nk:] - (torch.matmul(dC, AinvB) + torch.matmul(C, dAinvB))
+        M = M[:, nk:, nk:] - torch.matmul(C, AinvB)
+        touts += [dinvA, dAinvB, dC.contiguous()]
+    touts.append(gj_tangent_plain(outs[-1], dM))
+    return tuple(touts)
+
+
+def tangent_smem_bytes(n: int, sizes, dtype: torch.dtype) -> int:
+    """Shared memory of one K3ᵗ block (csrc/dchain_tangent.cu launch): the
+    primal and tangent cores, three square and two panel buffers."""
+    m, s1, s2 = n, 1, 1
+    for nk in sizes:
+        s1, s2 = max(s1, nk * nk), max(s2, nk * (m - nk))
+        m -= nk
+    s1 = max(s1, m * m)
+    return (2 * n * n + 3 * s1 + 2 * s2) * dtype.itemsize
+
+
+def dchain_tangent_cuda(D, dD, outs, sizes):
+    """Launch K3ᵗ on contiguous CUDA (B, n, n) f32/f64 tensors: the permuted
+    core D, its tangent dD and K3's outputs `outs`."""
+    refuse("dchain_tangent_cuda", D, dD, *outs)
+    sizes = tuple(int(s) for s in sizes)
+    if D.device.type != "cuda" or dD.device != D.device:
+        raise ValueError(f"dchain_tangent_cuda needs CUDA tensors on one device, got "
+                         f"{D.device}, {dD.device}")
+    if D.dtype not in (torch.float32, torch.float64) or dD.dtype != D.dtype:
+        raise TypeError(f"dchain_tangent_cuda takes float32/float64, got {D.dtype}, "
+                        f"{dD.dtype}")
+    if D.ndim != 3 or D.shape[1] != D.shape[2] or dD.shape != D.shape:
+        raise ValueError(f"dchain_tangent_cuda takes two (B, n, n), got "
+                         f"{tuple(D.shape)}, {tuple(dD.shape)}")
+    B, n = D.shape[0], D.shape[1]
+    if len(sizes) > MAX_LEVELS or any(s < 1 for s in sizes) or sum(sizes) >= n:
+        raise ValueError(f"dchain_tangent_cuda: level sizes {sizes} do not fit n={n}")
+    shapes = out_shapes(n, sizes)
+    if len(outs) != len(shapes) or any(
+            tuple(o.shape) != (B,) + s or o.dtype != D.dtype or o.device != D.device
+            for o, s in zip(outs, shapes)):
+        raise ValueError("dchain_tangent_cuda: the chain's outputs do not match the core")
+    if not all(x.is_contiguous() for x in (D, dD, *outs)):
+        raise ValueError("dchain_tangent_cuda takes contiguous tensors")
+    if tangent_smem_bytes(n, sizes, D.dtype) > MAX_SMEM_BYTES:
+        raise ValueError(f"dchain_tangent_cuda: n={n} in {D.dtype} needs "
+                         f"{tangent_smem_bytes(n, sizes, D.dtype)} B of shared memory")
+    touts = tuple(torch.empty((B,) + s, dtype=D.dtype, device=D.device) for s in shapes)
+    if B == 0:
+        return touts
+    lib = library("dchain_tangent", _T_LAUNCHERS)
+    fn = lib.dchain_tangent_f32 if D.dtype == torch.float32 else lib.dchain_tangent_f64
+    ins = (ctypes.c_void_p * len(outs))(*(o.data_ptr() for o in outs))
+    ptrs = (ctypes.c_void_p * len(touts))(*(o.data_ptr() for o in touts))
+    csizes = (ctypes.c_int * max(len(sizes), 1))(*sizes)
+    with torch.cuda.device(D.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(D.data_ptr(), dD.data_ptr(), ins, ptrs, csizes, len(sizes), B, n, stream)
+    check_launch(lib, "dchain_tangent", rc, n)
+    return touts
+
+
+def dchain_tangent_hot(D, dD, outs, sizes):
+    """The chain's tangent: K3ᵗ for CUDA tensors, the plain version for CPU
+    tensors."""
+    if D.device.type == "cpu":
+        return dchain_tangent_plain(D, dD, outs, sizes)
+    return dchain_tangent_cuda(D.contiguous(), dD.contiguous(),
+                               [o.contiguous() for o in outs], sizes)
+
+
+class Chain(torch.autograd.Function):
+    """The chain's outputs by the hot dispatch (K3 or its plain version), with
+    their forward-mode tangents (K3ᵗ on the card). Forward mode only, as
+    ``jax.jacfwd``: backward raises."""
+
+    @staticmethod
+    def forward(D, sizes):
+        return tuple(x if x._base is None else x.clone()
+                     for x in _dchain_dispatch(D, sizes))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.sizes = inputs[1]
+        ctx.save_for_forward(inputs[0], *output)
+
+    @staticmethod
+    def jvp(ctx, dD, _):
+        D, *outs = (primal(x) for x in ctx.saved_tensors)
+        return dchain_tangent_hot(D, dD, outs, ctx.sizes)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        raise NotImplementedError("the chain takes forward mode only")

@@ -14,7 +14,9 @@ The plain version is the scalar pivot-free Gauss-Jordan
 ``structured._gj_inverse_routed`` runs off the TPU. ``gj_blocks_hot`` takes
 it for a CPU tensor; a CUDA tensor launches the kernel or raises.
 ``gj_blocks_mirror`` is the kernel's own order of operations, which the
-tests and ``chip_smoke.py`` hold the kernel against.
+tests and ``chip_smoke.py`` hold the kernel against. A dual input (forward
+mode, ``ops/dual.py``) goes through ``gj_kernel.Inverse``: its tangent is
+K1ᵗ (``csrc/gj_tangent.cu``) at n = 10 and 30 on the card.
 """
 
 from __future__ import annotations
@@ -23,7 +25,8 @@ import ctypes
 
 import torch
 
-from .gj_kernel import check_launch, gj_inverse, library
+from .dual import has_tangent, refuse
+from .gj_kernel import Inverse, check_launch, gj_inverse, library
 
 MAX_N = 32          # one row per lane of a warp (csrc/gj_blocks.cu kMaxN)
 
@@ -80,6 +83,7 @@ def gj_blocks_mirror(A, width=None):
 
 def gj_blocks_cuda(A):
     """Launch K2 on a contiguous CUDA (M, n, n) f32/f64 tensor."""
+    refuse("gj_blocks_cuda", A)
     if A.device.type != "cuda":
         raise ValueError(f"gj_blocks_cuda needs a CUDA tensor, got {A.device}")
     if A.dtype not in (torch.float32, torch.float64):
@@ -103,10 +107,17 @@ def gj_blocks_cuda(A):
     return out
 
 
-def gj_blocks_hot(A):
-    """(..., n, n) inverses of equilibrated matrices: K2 for a CUDA tensor,
-    the plain version for a CPU tensor."""
+def _gj_blocks_dispatch(A):
     if A.device.type == "cpu":
         return gj_blocks_plain(A)
     n = A.shape[-1]
     return gj_blocks_cuda(A.reshape(-1, n, n).contiguous()).reshape(A.shape)
+
+
+def gj_blocks_hot(A):
+    """(..., n, n) inverses of equilibrated matrices: K2 for a CUDA tensor,
+    the plain version for a CPU tensor; a dual `A` through
+    ``gj_kernel.Inverse`` (its tangent by K1ᵗ on the card)."""
+    if has_tangent(A):
+        return Inverse.apply(A, _gj_blocks_dispatch)
+    return _gj_blocks_dispatch(A)

@@ -21,6 +21,14 @@ kernel's in-place pivot loop in its order of operations, which the tests and
 ``chip_smoke.py`` hold the kernel against). ``gj_inverse_hot`` dispatches on
 the tensor's device: a CPU tensor takes the plain blocked version, a CUDA
 tensor launches the kernel or raises — there is no fallback.
+
+Forward-mode tangents (``ops/dual.py``): a dual input goes through
+``Inverse``, an ``autograd.Function`` whose forward is the same dispatch and
+whose ``jvp`` is dX = −X·dA·X, by ``csrc/gj_tangent.cu`` (K1ᵗ) for a CUDA
+tensor and ``gj_tangent_plain`` for a CPU tensor. K1ᵗ replaces no TPU kernel
+of its own: it is the port's counterpart of Pallas's JVP of ``_gj_kernel``,
+which the JAX package's ``jax.jacfwd`` runs on a TPU. K2's tangent
+(``ops/gj_blocks.py``) is the same kernel.
 """
 
 from __future__ import annotations
@@ -34,8 +42,10 @@ from pathlib import Path
 
 import torch
 
+from .dual import has_tangent, refuse
+
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-KERNEL_SOURCES = ("gj_inverse", "gj_blocks", "dchain")
+KERNEL_SOURCES = ("gj_inverse", "gj_blocks", "dchain", "gj_tangent", "dchain_tangent")
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -243,6 +253,7 @@ def build():
 
 def gj_inverse_cuda(A):
     """Launch the kernel on a contiguous CUDA (B, n, n) f32/f64 tensor."""
+    refuse("gj_inverse_cuda", A)
     if A.device.type != "cuda":
         raise ValueError(f"gj_inverse_cuda needs a CUDA tensor, got {A.device}")
     if A.dtype not in (torch.float32, torch.float64):
@@ -267,11 +278,97 @@ def gj_inverse_cuda(A):
     return out
 
 
-def gj_inverse_hot(A):
-    """(..., n, n) inverses of equilibrated matrices: the kernel for a CUDA
-    tensor, the plain blocked version for a CPU tensor."""
+def _gj_inverse_dispatch(A):
     n = A.shape[-1]
     if A.device.type == "cpu":
         return gj_inverse_blocked(A, bs=_best_bs(n))
     flat = A.reshape(-1, n, n).contiguous()
     return gj_inverse_cuda(flat).reshape(A.shape)
+
+
+def gj_inverse_hot(A):
+    """(..., n, n) inverses of equilibrated matrices: the kernel for a CUDA
+    tensor, the plain blocked version for a CPU tensor; a dual `A` through
+    ``Inverse`` (its tangent by K1ᵗ on the card)."""
+    if has_tangent(A):
+        return Inverse.apply(A, _gj_inverse_dispatch)
+    return _gj_inverse_dispatch(A)
+
+
+# ---------------------------------------------------------------------------
+# the tangent: K1ᵗ and its plain version
+# ---------------------------------------------------------------------------
+
+_GJT_LAUNCHERS = {f"gj_tangent_{t}": [_P, _P, _P, _I, _I, _P] for t in ("f32", "f64")}
+
+
+def gj_tangent_plain(X, dA):
+    """dX = −(X·dA)·X, the tangent of X = A⁻¹ along dA, (..., n, n) (the
+    kernel's association)."""
+    return -torch.matmul(torch.matmul(X, dA), X)
+
+
+def gj_tangent_cuda(X, dA):
+    """Launch K1ᵗ on contiguous CUDA (B, n, n) f32/f64 tensors: X an inverse,
+    dA the tangent of the matrix it inverts."""
+    refuse("gj_tangent_cuda", X, dA)
+    if X.device.type != "cuda" or dA.device != X.device:
+        raise ValueError(f"gj_tangent_cuda needs CUDA tensors on one device, got "
+                         f"{X.device}, {dA.device}")
+    if X.dtype not in (torch.float32, torch.float64) or dA.dtype != X.dtype:
+        raise TypeError(f"gj_tangent_cuda takes float32/float64, got {X.dtype}, {dA.dtype}")
+    if X.ndim != 3 or X.shape[1] != X.shape[2] or dA.shape != X.shape:
+        raise ValueError(f"gj_tangent_cuda takes two (B, n, n), got {tuple(X.shape)}, "
+                         f"{tuple(dA.shape)}")
+    if not (X.is_contiguous() and dA.is_contiguous()):
+        raise ValueError("gj_tangent_cuda takes contiguous tensors")
+    B, n = X.shape[0], X.shape[1]
+    if n > MAX_N[X.dtype]:
+        raise ValueError(f"gj_tangent_cuda takes n <= {MAX_N[X.dtype]} in "
+                         f"{X.dtype}, got n={n}")
+    out = torch.empty_like(X)
+    if B == 0 or n == 0:
+        return out
+    lib = library("gj_tangent", _GJT_LAUNCHERS)
+    fn = lib.gj_tangent_f32 if X.dtype == torch.float32 else lib.gj_tangent_f64
+    with torch.cuda.device(X.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        rc = fn(X.data_ptr(), dA.data_ptr(), out.data_ptr(), B, n, stream)
+    check_launch(lib, "gj_tangent", rc, n)
+    return out
+
+
+def gj_tangent_hot(X, dA):
+    """The tangent of (..., n, n) inverses: K1ᵗ for CUDA tensors, the plain
+    version for CPU tensors."""
+    if X.device.type == "cpu":
+        return gj_tangent_plain(X, dA)
+    n = X.shape[-1]
+    return gj_tangent_cuda(X.reshape(-1, n, n).contiguous(),
+                           dA.reshape(-1, n, n).contiguous()).reshape(X.shape)
+
+
+class Inverse(torch.autograd.Function):
+    """X = inverse(A) by `inverse` (a hot dispatch: K1, K2 or their plain
+    versions) with the forward-mode tangent dX = −X·dA·X (K1ᵗ on the card).
+    Forward mode only, as ``jax.jacfwd``: backward raises."""
+
+    @staticmethod
+    def forward(A, inverse):
+        X = inverse(A)
+        # an output that is a view (the plain versions' slices) cannot take a
+        # tangent of its own
+        return X if X._base is None else X.clone()
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_forward(output)
+
+    @staticmethod
+    def jvp(ctx, dA, _):
+        (X,) = ctx.saved_tensors
+        return gj_tangent_hot(X, dA)
+
+    @staticmethod
+    def backward(ctx, grad):
+        raise NotImplementedError("the kernels' inverses take forward mode only")

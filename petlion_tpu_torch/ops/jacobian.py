@@ -23,6 +23,8 @@ from typing import Callable
 import numpy as np
 import torch
 
+from .dual import dual_constant, grad_leaf, grad_seed
+
 
 def tile_rows(data: dict, reps: int) -> dict:
     """Repeat every per-row tensor of `data` `reps` times along axis 0
@@ -41,13 +43,15 @@ def stacked_jvp(g: Callable, y, data: dict, seeds):
     # J·T by the double-vjp trick: u ↦ Jᵀu is linear in u, so its vjp with
     # T is J·T. Forward-mode dual tensors (and torch.func.jvp) send every op
     # with a constant operand through a slow Python-level zero-tangent path;
-    # reverse mode twice runs at native speed.
+    # reverse mode twice runs at native speed. A forward-mode tangent of y or
+    # of `data` (parameter estimation) rides through both passes.
     with torch.enable_grad():
-        Yr = Y.detach().requires_grad_(True)
+        Yr = grad_leaf(Y)
         out = g(Yr, data_r)
-        u = torch.zeros_like(out, requires_grad=True)
+        u = grad_seed(out, 0.0)
+        u = (torch.zeros_like(out) if u is None else u).requires_grad_(True)
         (gY,) = torch.autograd.grad(out, Yr, u, create_graph=True)
-        (JT,) = torch.autograd.grad(gY, u, T)
+        (JT,) = torch.autograd.grad(gY, u, dual_constant(T, gY))
     return JT.reshape(S, B, -1).transpose(0, 1)
 
 
@@ -81,9 +85,9 @@ def newton_system(F: Callable, data: dict, t, y_pred, c0, psi_over_h):
 def last_row_grad(g: Callable, y, data: dict):
     """∂g(y)[:, -1]/∂y for every row, by one reverse pass, (B, N)."""
     with torch.enable_grad():
-        yy = y.detach().requires_grad_(True)
+        yy = grad_leaf(y)
         out = g(yy, data)[:, -1].sum()
-        return torch.autograd.grad(out, yy)[0]
+        return torch.autograd.grad(out, yy, grad_seed(out))[0]
 
 
 def detect_sparsity(F: Callable, y_samples, yp_samples, t_samples, data: dict,

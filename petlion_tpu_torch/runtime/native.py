@@ -20,6 +20,8 @@ from pathlib import Path
 
 import numpy as np
 
+from ..ops.dual import refuse
+
 SOURCE = Path(__file__).resolve().parents[1] / "csrc" / "native.cpp"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "native"
 CXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
@@ -83,7 +85,9 @@ def _dp(a):
 
 
 def spline_interp(t, y, t_query, extrapolate=False):
-    """Natural cubic spline; y is (n,) or (n, m). Returns query values."""
+    """Natural cubic spline; y is (n,) or (n, m). Returns query values.
+    A tensor with a forward-mode tangent raises: the host copy would drop it."""
+    refuse("spline_interp", t, y, t_query)
     lib = _load()
     if lib is None:
         raise RuntimeError("the native runtime is not built")
@@ -105,7 +109,9 @@ def spline_interp(t, y, t_query, extrapolate=False):
 
 
 def banded_arrow_solve(A, b, kl, ku):
-    """Solve the P2D banded+arrowhead system (host, f64). `A` is copied."""
+    """Solve the P2D banded+arrowhead system (host, f64). `A` is copied.
+    A tensor with a forward-mode tangent raises, as in `spline_interp`."""
+    refuse("banded_arrow_solve", A, b)
     lib = _load()
     if lib is None:
         raise RuntimeError("the native runtime is not built")

@@ -199,10 +199,19 @@ def make_model(theta: dict, bounds: Bounds, opts: SimOptions,
                  cfg=cfg, device=dev, dtype=dtype)
 
 
+def default_dtype() -> torch.dtype:
+    """The dtype of a model unless the caller names one: float64, as the JAX
+    package's ``default_dtype()`` under ``jax_enable_x64`` (its tests and its
+    estimation run so)."""
+    return torch.float64
+
+
 def petlion(chemistry: Callable = LCO, *, device="cuda",
-            dtype: torch.dtype = torch.float64, **kwargs) -> Model:
+            dtype: Optional[torch.dtype] = None, **kwargs) -> Model:
     """Model factory: `chemistry(**kwargs)` gives (θ, bounds, opts, N,
-    numerics); θ becomes tensors on `device` in `dtype`."""
+    numerics); θ becomes tensors on `device` in `dtype` (default
+    ``default_dtype()``)."""
+    dtype = default_dtype() if dtype is None else dtype
     theta, bounds, opts, N, numerics = chemistry(**kwargs)
     _check_errors_initial(theta, numerics)
     return make_model(theta, bounds, opts, N, numerics, device=device,

@@ -151,7 +151,40 @@ Phases, each of which must pass (any failure exits non-zero and prints no
    make_schur_solver(layout)) (K1 at n = 101) and run_once(jac_plan=
    get_plan(..., use_schur=False)), under path 1's checks, with the peak
    device memory of each.
-16. estimation (path 14, float64, `petlion_tpu_torch.estimation`): (a)
+16. the last modules (path 15: (a)-(c) in a child process of this script,
+   `--path15`, and (d) in subprocesses, all started after path 13 when the
+   tangent guard is lifted and run beside path 14 on other host cores, the
+   script's time limit; the child checks that it launched no tangent
+   kernel, prints its phase walls and its K1 launches, and any child
+   failing fails the script): (a) path 1's 1024 float32 cells through
+   batch_simulate(mesh=make_cell_mesh()) (every visible card, one shard
+   each) under path 1's checks; then MESH_B = 64 float64 cells of path 1
+   split over two shards of the one card (make_cell_mesh(devices=
+   ["cuda:0", "cuda:0"]), a host thread each) against the same cells
+   unsplit: the JAX test's tolerances (tests/test_batch.py:53-56: t_final
+   rtol 1e-12, y_final rtol 1e-8) and the same flags; the split run's
+   trips are its shards' slowest cells' attempts summed and its K1 launches
+   each shard's initialization (as many as the unsplit run's) plus one a
+   trip; (b) batch_cost_analysis (one trip after consistent
+   initialization: flops, bytes accessed, aten ops, the kernels' launches by
+   their ops/cost.py formulas) of paths 1 and 2 at 1024 float32 cells on
+   the card, each trip's flops and bytes over the mean trip wall of path
+   1's warm run (phase 4) against the card's peaks; at 64 cells the card's
+   count on each route within 1% of the CPU's in the same process, the
+   kernels' entries equal; (c) utils.profiling.trace around one 64-cell
+   path 1 run (its Chrome trace must hold CUDA kernel events of K1's
+   symbol) and a Timer around the same run with the result as sync (it
+   must report one call); (d) the examples (petlion_tpu_torch/examples/)
+   cc_cv, model_inputs_and_outputs, variable_input_functions and
+   multichip_sweep (64 cells a card) as `python -m` subprocesses on the
+   card (one host thread of torch each): each must exit 0 within
+   EXAMPLE_TIMEOUT and print the line its JAX twin's test expects
+   (EXAMPLES_ON_CARD); their walls are printed. getting_started, gitt and
+   updating_parameters do not fit the time limit beside the rest, and
+   fast_charging_cc_ct_cv and parameter_estimation drive the programs of
+   paths 9 and 14(c): `python -m petlion_tpu_torch.examples` runs all nine
+   one at a time with their walls.
+17. estimation (path 14, float64, `petlion_tpu_torch.estimation`): (a)
    `sensitivities(p, ["D_sp"], [100, 300, 550], I_crate=-1, SOC=0.5)` (the
    JAX package's tests/test_estimation.py:18) on the default route, which
    must launch K1ᵗ at n = 71, held against the port's central difference on
@@ -160,12 +193,15 @@ Phases, each of which must pass (any failure exits non-zero and prints no
    route, which must launch K1ᵗ at n = 10 and 30 and K3ᵗ, within 1e-7 of
    (a); (c) the JAX test's Gauss–Newton recovery of {D_sp: 1.7e-14, k_n:
    3.1e-11} from (1e-14, 5.031e-11), 24 points on 60–1700 s from SOC 0.9,
-   10 iterations at most: each within 1e-3. Walls, trips, Gauss–Newton
+   GN_ITERS = 5 iterations at most (the JAX test takes 10; the fit reaches
+   rms ~3e-12 by its sixth: the script's time limit): each within 1e-3.
+   Walls, trips, Gauss–Newton
    iterations and rms, and launches by kernel and n are printed.
 
 The line before the last is the kernels' JSON record (one entry per kernel;
 `launches` is the count of the paths that run it: path 1, simulate, tstops,
-gitt, cccv, the protocol and paths 11-13 (at n = 71) for K1, path 2 for K2
+gitt, cccv, the protocol, paths 11-13 and path 15 in this process (at n =
+71) for K1, path 2 for K2
 and K3; `gj_inverse_n92`, `gj_inverse_n121_f64` and `gj_inverse_n101` are
 K1 at the 92-state core of path 7, the thermal core of path 9 and the
 particle-Schur core of path 13(c), each with the launches at that n;
@@ -189,13 +225,6 @@ T_START = time.time()
 HERE = os.path.dirname(os.path.abspath(__file__))
 ORACLE = os.path.join(HERE, "tests", "data", "oracle_lco_1c.npz")
 
-# H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s, FP32 outside the tensor
-# cores (the kernels do scalar FMAs; TF32 would round), and FP64 on the
-# tensor cores (IEEE double FMA, the card's fastest float64 rate: twice the
-# 34 TFLOP/s outside them)
-PEAK_BYTES_PER_S = 3.35e12
-PEAK_FP32_FLOP_PER_S = 67e12
-PEAK_FP64_FLOP_PER_S = 67e12
 # spin that holds the stream while the host queues timed launches: 1.2e8
 # cycles, at least 60 ms at the H100's 1.98 GHz boost clock
 SPIN_CYCLES = 120_000_000
@@ -204,6 +233,14 @@ ROTATING = 4        # input buffers rotated in the K1 and K3 timings (82 MB)
 # main_path.py profiles three a path)
 EARLY_WARM = 1
 K2_ROTATING = 16    # and in K2's (60-66 MB at either main-path shape)
+MESH_B = 64         # path 15's float64 split, cost comparison and profile
+# path 15(d): the examples run on the card at once, each with the line its
+# JAX twin's test expects (multichip_sweep's count is set by the cards)
+EXAMPLES_ON_CARD = {"cc_cv": "exit reasons:", "model_inputs_and_outputs": "run 1:",
+                    "variable_input_functions": "feedback I:", "multichip_sweep": "completed"}
+EXAMPLE_TIMEOUT = 600
+PATH15_TIMEOUT = 900
+GN_ITERS = 5        # path 14(c)'s Gauss-Newton iterations at most
 
 
 class SmokeFailure(Exception):
@@ -339,14 +376,6 @@ def _equilibrated_inputs(B, n, dtype, seed):
     return _equilibrate(A)[0].contiguous()
 
 
-def _bound(n_bytes, flops, fp64=False):
-    """(bound ms, bound_by) of work that moves n_bytes and does flops, at the
-    card's float32 peak (or with `fp64` its float64 peak, PEAK_FP64_FLOP_PER_S)."""
-    bytes_ms = n_bytes / PEAK_BYTES_PER_S * 1e3
-    flops_ms = flops / (PEAK_FP64_FLOP_PER_S if fp64 else PEAK_FP32_FLOP_PER_S) * 1e3
-    return max(bytes_ms, flops_ms), ("bytes" if bytes_ms >= flops_ms else "operations")
-
-
 def _k1_real_cores(D, reps):
     """K1 on the equilibrated real cores `D` tiled `reps` times: the float32
     errors against the float64 mirror, relative to each matrix's scale, of
@@ -377,13 +406,13 @@ def _k1_timing(B, n, rotating, seed):
     inputs behind the spin, the plain version's and torch.linalg.inv_ex's
     ms, and the bound: a dict of the record's timing keys."""
     import torch
-    from petlion_tpu_torch.ops import gj_kernel as gk
+    from petlion_tpu_torch.ops import cost, gj_kernel as gk
     bufs = [_equilibrated_inputs(B, n, torch.float32, seed=seed + i) for i in range(rotating)]
     ms, host_us = device_ms(gk.gj_inverse_cuda, bufs, reps=200)
     plain_ms, _ = device_ms(lambda A: gk.gj_inverse_blocked(A, bs=gk._best_bs(n)), bufs,
                             reps=8, spin=False)
     library_ms, _ = device_ms(lambda A: torch.linalg.inv_ex(A)[0], bufs, reps=8, spin=False)
-    bound_ms, by = _bound(2 * B * n * n * 4, 2 * n ** 3 * B)
+    bound_ms, by = cost.bound(*reversed(cost.gj_inverse(B, n, 4)))
     print(f"kernel timing ({B}, {n}) f32, {rotating} rotating inputs: kernel {ms:.4f} ms, "
           f"plain {plain_ms:.4f} ms, torch.linalg.inv_ex {library_ms:.4f} ms, bound "
           f"{bound_ms:.4f} ms ({by}; {bound_ms / ms:.1%} of it reached); host "
@@ -445,7 +474,7 @@ def phase_k1(D):
 
 def phase_k2(groups):
     import torch
-    from petlion_tpu_torch.ops import gj_blocks as kb
+    from petlion_tpu_torch.ops import cost, gj_blocks as kb
     cases = [((10240, 10), torch.float32, 2e-4), ((1024, 30), torch.float32, 2e-4),
              ((7, 10), torch.float32, 2e-4), ((7, 17), torch.float32, 2e-4),
              ((7, 30), torch.float32, 2e-4), ((10240, 10), torch.float64, 1e-10),
@@ -510,8 +539,8 @@ def phase_k2(groups):
         # spin, its host waits are part of what it costs
         lib_spin = not waits_for_device(inv_ex, bufs[0])
         library_ms, lib_host_us = device_ms(inv_ex, bufs, reps=20, spin=lib_spin)
-        n_bytes = 2 * M * n * n * 4
-        bound_ms, by = _bound(n_bytes, 2 * n ** 3 * M)
+        flops, n_bytes = cost.gj_blocks(M, n, 4)
+        bound_ms, by = cost.bound(n_bytes, flops)
         print(f"K2 timing ({M}, {n}, {n}) f32, {rot} rotating inputs "
               f"({rot * n_bytes / 2e6:.1f} MB): kernel {ms:.4f} ms (back to back "
               f"on one input, no spin: {b2b_ms:.4f} ms), plain {plain_ms:.4f} ms, "
@@ -527,25 +556,13 @@ def phase_k2(groups):
                 shapes=shapes)
 
 
-def _dchain_flops(n, sizes):
-    """Operations of the chain on one core: per level an n_k Gauss-Jordan
-    inverse (2 n_k^3), AinvB (2 n_k^2 r) and the Schur update (2 r^2 n_k);
-    then the inverse of the rest."""
-    f, m = 0, n
-    for nk in sizes:
-        r = m - nk
-        f += 2 * nk ** 3 + 2 * nk * nk * r + 2 * r * r * nk
-        m = r
-    return f + 2 * m ** 3
-
-
 def phase_k3(Dp, sizes, sei=None):
     """K3 against its plain version and mirror (see the module docstring),
     timed at path 2's shape and, with `sei` = (permuted cores, sizes), at
     path 7's (256, 92, 92)."""
     import numpy as np
     import torch
-    from petlion_tpu_torch.ops import dchain as kd
+    from petlion_tpu_torch.ops import cost, dchain as kd
     err_rec = None
     for B in (1024, 5):
         reps = -(-B // Dp.shape[0])
@@ -595,19 +612,19 @@ def phase_k3(Dp, sizes, sei=None):
     for D, lv, B, rot in ((Dp, sizes, 1024, ROTATING),) + (
             ((sei[0], sei[1], 256, 2 * ROTATING),) if sei is not None else ()):
         m = D.shape[-1]
-        oe = sum(a * b for a, b in kd.out_shapes(m, lv))
         bufs = [D.to("cuda").float().repeat(-(-B // D.shape[0]), 1, 1)[:B].contiguous()
                 for _ in range(rot)]
         check(all(torch.isfinite(o).all() for o in kd.dchain_cuda(bufs[0], lv)),
               f"K3 at ({B}, {m}): non-finite output")
         ms, host_us = device_ms(lambda X: kd.dchain_cuda(X, lv), bufs, reps=200)
         plain_ms, _ = device_ms(lambda X: kd.dchain_plain(X, lv), bufs, reps=8, spin=False)
-        bound_ms, by = _bound((m * m + oe) * 4 * B, _dchain_flops(m, lv) * B)
+        flops, n_bytes = cost.dchain(B, m, lv, 4)
+        bound_ms, by = cost.bound(n_bytes, flops)
         print(f"K3 timing ({B}, {m}, {m}) sizes {lv} f32, {rot} rotating inputs: "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, no single PyTorch call computes "
               f"the chain, bound {bound_ms:.4f} ms ({by}: "
-              f"{(m * m + oe) * 4 * B / 1e6:.1f} MB, "
-              f"{_dchain_flops(m, lv) * B / 1e9:.3f} GFLOP; {bound_ms / ms:.1%} of it "
+              f"{n_bytes / 1e6:.1f} MB, "
+              f"{flops / 1e9:.3f} GFLOP; {bound_ms / ms:.1%} of it "
               f"reached); host {host_us:.1f} us per dchain_cuda call")
         shapes.append(dict(shape=[B, m, m], sizes=list(lv), ms=ms, plain_ms=plain_ms,
                            library_ms=None, bound_ms=bound_ms, bound_by=by))
@@ -659,7 +676,7 @@ def phase_main(card):
 
     p = mp.model(device="cuda")
     oracle = np.load(ORACLE)
-    launches, results = {}, {}
+    launches, results, trip_s = {}, {}, {}
     for name, route, needs in (("path 1", mp.PATH1, ("gj_inverse",)),
                                ("path 2", mp.PATH2, ("gj_inverse", "gj_blocks", "dchain"))):
         launches[name], results[name] = drive_path(mp, p, name, route, oracle,
@@ -679,8 +696,9 @@ def phase_main(card):
               f"{mp.B_MAIN / med:.1f} discharges/s, spread {spread:.1%}; steps/cell "
               f"mean {res2.n_steps.float().mean().item():.2f}, attempts/cell mean "
               f"{att2.mean():.2f} max {att2.max()} [{card}]")
+        trip_s[name] = float(med / att2.max())  # a trip per attempt of the slowest cell
     drive_path(mp, p, "colored route", mp.COLORED, oracle, 64, ("gj_inverse",))
-    return launches, results["path 1"]
+    return launches, results["path 1"], trip_s["path 1"]
 
 
 def phase_simulate(card, oracle):
@@ -1198,7 +1216,7 @@ def phase_k1_core121(cores):
     the spin, beside the bound, the plain version and torch.linalg.inv_ex;
     and the registers and spills of the float64 T = 16, P = 8 tile."""
     import torch
-    from petlion_tpu_torch.ops import gj_kernel as gk
+    from petlion_tpu_torch.ops import cost, gj_kernel as gk
     from petlion_tpu_torch.solver.linsolve import _equilibrate
     n = 121
     A = _equilibrated_inputs(128, n, torch.float64, seed=121)
@@ -1234,14 +1252,14 @@ def phase_k1_core121(cores):
                                 reps=8, spin=False)
         library_ms, _ = device_ms(lambda X: torch.linalg.inv_ex(X)[0], bufs, reps=8,
                                   spin=False)
-        bytes_ms = 2 * B * n * n * 8 / PEAK_BYTES_PER_S * 1e3
-        ops_ms = 2 * n ** 3 * B / PEAK_FP64_FLOP_PER_S * 1e3
-        bound_ms, by = max(bytes_ms, ops_ms), ("bytes" if bytes_ms >= ops_ms else "operations")
+        flops, n_bytes = cost.gj_inverse(B, n, 8)
+        bytes_ms, ops_ms = cost.bound(n_bytes, 0)[0], cost.bound(0, flops, fp64=True)[0]
+        bound_ms, by = cost.bound(n_bytes, flops, fp64=True)
         print(f"K1 timing ({B}, {n}) f64, {rot} rotating inputs: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms, torch.linalg.inv_ex {library_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({by}: {2 * B * n * n * 8 / 1e6:.2f} MB = {bytes_ms:.4f} ms, "
-              f"{2 * n ** 3 * B / 1e9:.4f} GFLOP = {ops_ms:.4f} ms at FP64 "
-              f"{PEAK_FP64_FLOP_PER_S / 1e12:.0f} TFLOP/s; "
+              f"{bound_ms:.4f} ms ({by}: {n_bytes / 1e6:.2f} MB = {bytes_ms:.4f} ms, "
+              f"{flops / 1e9:.4f} GFLOP = {ops_ms:.4f} ms at FP64 "
+              f"{cost.PEAK_FP64_FLOP_PER_S / 1e12:.0f} TFLOP/s; "
               f"{bound_ms / ms:.1%} of it reached); host {host_us:.1f} us per call")
         shapes.append(dict(shape=[B, n, n], ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                            bound_ms=bound_ms, bound_by=by))
@@ -1586,8 +1604,8 @@ TANGENT_KERNELS = ("gj_tangent", "dchain_tangent")
 
 def guard_tangent_launches():
     """From here on every reset of the launch counts checks that no tangent
-    kernel launched since the last one: paths 1-13 take no tangent. Returns
-    a function that lifts the check (for path 14)."""
+    kernel launched since the last one: paths 1-13 and 15 take no tangent.
+    Returns a function that lifts the check (for path 14)."""
     from petlion_tpu_torch.ops import gj_kernel as gk
     reset = gk.reset_launch_counts
     state = {"on": True}
@@ -1617,7 +1635,7 @@ def phase_k1t():
     which the port never calls)."""
     import numpy as np
     import torch
-    from petlion_tpu_torch.ops import gj_kernel as gk
+    from petlion_tpu_torch.ops import cost, gj_kernel as gk
     cases = (((1, 71), torch.float64), ((2, 71), torch.float64), ((1024, 71), torch.float32),
              ((10240, 10), torch.float32), ((10240, 10), torch.float64),
              ((1024, 30), torch.float32), ((1024, 30), torch.float64))
@@ -1644,7 +1662,8 @@ def phase_k1t():
         ms, host_us = device_ms(lambda a: gk.gj_tangent_cuda(*a), bufs, reps=200)
         plain_ms, _ = device_ms(lambda a: gk.gj_tangent_plain(*a), bufs, reps=20, spin=False)
         bmm_ms, _ = device_ms(lambda a: torch.bmm(torch.bmm(a[0], a[1]), a[0]), bufs, reps=20)
-        bound_ms, by = _bound(3 * B * n * n * size, 4 * n ** 3 * B, dtype == torch.float64)
+        bound_ms, by = cost.bound(*reversed(cost.gj_tangent(B, n, size)),
+                                  fp64=dtype == torch.float64)
         tag = str(dtype)[6:]
         print(f"K1t {tag} ({B}, {n}): error vs float64 plain / scale {err:.3e}"
               f"{'' if plain_err is None else f' (plain f32 {plain_err:.3e})'}; kernel "
@@ -1662,21 +1681,6 @@ def phase_k1t():
                 bmm_ms=first["bmm_ms"], shape=first["shape"], shapes=shapes)
 
 
-def _dchain_tangent_flops(n, sizes):
-    """Operations of the chain's tangent on one core: per level the two
-    products of d invA (4 nk^3), d AinvB (4 nk^2 r), the tangent's Schur
-    update (4 r^2 nk) and, before the last level, the primal's (2 r^2 nk);
-    then the core inverse's tangent (4 m^3)."""
-    f, m = 0, n
-    for i, nk in enumerate(sizes):
-        r = m - nk
-        f += 4 * nk ** 3 + 4 * nk * nk * r + 4 * r * r * nk
-        if i + 1 < len(sizes):
-            f += 2 * r * r * nk
-        m = r
-    return f + 4 * m ** 3
-
-
 def phase_k3t(Dp, sizes):
     """K3ᵗ (csrc/dchain_tangent.cu) on the permuted Schur cores of real
     Newton matrices (the cores phase_k3 takes, levels (20, 20)) with K3's
@@ -1688,7 +1692,7 @@ def phase_k3t(Dp, sizes):
     bound, the plain version and two torch.bmm at the core's size."""
     import numpy as np
     import torch
-    from petlion_tpu_torch.ops import dchain as kd
+    from petlion_tpu_torch.ops import cost, dchain as kd
     worst = 0.0
     rng = np.random.default_rng(5)
     dDp = Dp * torch.as_tensor(rng.standard_normal(Dp.shape))
@@ -1715,11 +1719,6 @@ def phase_k3t(Dp, sizes):
                   + ("" if dtype == torch.float64 else
                      f" (plain f32 {', '.join(f'{e:.2e}' for e in perrs)})"))
     n = Dp.shape[-1]
-    shapes_out = kd.out_shapes(n, sizes)
-    oe = sum(a * b for a, b in shapes_out)
-    # read: D, dD and of K3's outputs each level's invA and AinvB and the core
-    # inverse X (each level's C it takes from D); written: a tangent an output
-    oe_read = oe - sum(a * b for a, b in shapes_out[2:-1:3])
     shapes = []
     for B, dtype in ((1, torch.float64), (1024, torch.float64), (1024, torch.float32)):
         size = torch.empty(0, dtype=dtype).element_size()
@@ -1734,15 +1733,14 @@ def phase_k3t(Dp, sizes):
         plain_ms, _ = device_ms(lambda a: kd.dchain_tangent_plain(*a, sizes), bufs, reps=8,
                                 spin=False)
         bmm_ms, _ = device_ms(lambda a: torch.bmm(torch.bmm(a[0], a[1]), a[0]), bufs, reps=20)
-        n_bytes = (2 * n * n + oe_read + oe) * size * B
-        bound_ms, by = _bound(n_bytes, _dchain_tangent_flops(n, sizes) * B,
-                              dtype == torch.float64)
+        flops, n_bytes = cost.dchain_tangent(B, n, sizes, size)
+        bound_ms, by = cost.bound(n_bytes, flops, fp64=dtype == torch.float64)
         tag = str(dtype)[6:]
         print(f"K3t timing ({B}, {n}, {n}) sizes {tuple(sizes)} {tag}, {rot} rotating inputs: "
               f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, two torch.bmm at ({B}, {n}, {n}) "
               f"{bmm_ms:.4f} ms, no single PyTorch call computes the tangent; bound "
               f"{bound_ms:.4f} ms ({by}: {n_bytes / 1e6:.3f} MB, "
-              f"{_dchain_tangent_flops(n, sizes) * B / 1e9:.4f} GFLOP; {bound_ms / ms:.1%} of "
+              f"{flops / 1e9:.4f} GFLOP; {bound_ms / ms:.1%} of "
               f"it reached); host {host_us:.1f} us per call")
         shapes.append(dict(shape=[B, n, n], dtype=tag, sizes=list(sizes), ms=ms,
                            plain_ms=plain_ms, bmm_ms=bmm_ms, library_ms=None,
@@ -1845,7 +1843,7 @@ def phase_estimation(card):
     t0 = time.time()
     out = io.StringIO()
     with contextlib.redirect_stdout(out):    # verbose prints each iteration's rms
-        fitted = est.fit(pc, list(true), t_data, V_data, I_crate=-1.0, SOC=0.9, iters=10,
+        fitted = est.fit(pc, list(true), t_data, V_data, I_crate=-1.0, SOC=0.9, iters=GN_ITERS,
                          verbose=True)
     torch.cuda.synchronize()
     wall_c = time.time() - t0
@@ -1866,6 +1864,289 @@ def phase_estimation(card):
     return launched
 
 
+def phase_mesh(card, oracle):
+    """Path 15(a), the cells axis split over devices (see the module
+    docstring). Returns K1's launches over the phase."""
+    import numpy as np
+    import torch
+    import petlion_tpu_torch as ptt
+    from petlion_tpu_torch import main_path as mp
+    from petlion_tpu_torch.ops import gj_kernel as gk
+    from petlion_tpu_torch.solver import run as runner
+
+    p = mp.model(device="cuda")
+    mesh = ptt.make_cell_mesh()
+    print(f"path 15(a) mesh {[str(d) for d in mesh.devices]}, axis {mesh.axis_name!r}")
+    launches, _ = drive_path(mp, p, "path 15(a) path 1 through make_cell_mesh()", mp.PATH1,
+                             oracle, mp.B_MAIN, ("gj_inverse",),
+                             go=lambda: mp.run(p, seed=0, route=mp.PATH1, mesh=mesh))
+    k1 = launches["gj_inverse"]
+
+    # MESH_B float64 cells split over two shards of the one card, against the
+    # same cells unsplit
+    tb = {k: v[:MESH_B] for k, v in mp.theta_batch(0).items()}
+    kw = dict(I=-1.0, SOC=1.0, theta_batch=tb, outputs=("t", "V"), route=mp.PATH1,
+              dtype=torch.float64)
+
+    def counted(**extra):
+        gk.reset_launch_counts()
+        runner.reset_trip_counts()
+        t0 = time.perf_counter()
+        r = ptt.batch_simulate(p, mp.TF, **kw, **extra)
+        torch.cuda.synchronize()
+        return r, gk.LAUNCHES["gj_inverse"], runner.TRIPS["trips"], time.perf_counter() - t0
+
+    ref, k1_ref, trips_ref, wall_ref = counted()
+    two = ptt.make_cell_mesh(devices=["cuda:0", "cuda:0"])
+    got, k1_split, trips_split, wall_split = counted(mesh=two)
+    t_err = float(np.max(np.abs(got.t_final.cpu().numpy() - ref.t_final.cpu().numpy())
+                         / np.abs(ref.t_final.cpu().numpy())))
+    y_ref = ref.y_final.cpu().numpy()
+    y_err = float(np.max(np.abs(got.y_final.cpu().numpy() - y_ref)
+                         / np.maximum(np.abs(y_ref), 1e-300)))
+    # a trip makes one attempt for each cell still running, so a run's trips
+    # are its slowest cell's attempts, and each shard's its own slowest
+    # cell's; K1 launches once a trip and, in the initialization, as often
+    # in a shard as in the whole batch (its cells converge together)
+    att = (ref.n_steps + ref.n_rejected).cpu().numpy()
+    shard_trips = [int(a.max()) for a in np.split(att, two.size)]
+    k1_init = k1_ref - trips_ref
+    print(f"path 15(a) {MESH_B} float64 cells over {[str(d) for d in two.devices]}: "
+          f"{wall_split:.3f} s, {trips_split} trips, K1 {k1_split}; unsplit {wall_ref:.3f} s, "
+          f"{trips_ref} trips, K1 {k1_ref} ({k1_init} in the initialization); the shards' "
+          f"slowest cells take {shard_trips} attempts; split vs unsplit max rel t_final "
+          f"{t_err:.3e} (rtol 1e-12), y_final {y_err:.3e} (rtol 1e-8) [{card}]")
+    check(bool(np.isin(got.flag.cpu().numpy(), (0, 1, 3)).all()), "path 15(a) split: bad flags")
+    check(bool((got.flag == ref.flag).all()), "path 15(a): split flags differ from unsplit")
+    check(got.y_final.device == torch.device("cuda", 0), "path 15(a): result off the mesh's device")
+    check(t_err <= 1e-12, f"path 15(a): split t_final off the unsplit by {t_err}")
+    check(y_err <= 1e-8, f"path 15(a): split y_final off the unsplit by {y_err}")
+    check(trips_ref == int(att.max()), f"path 15(a): {trips_ref} trips for {att.max()} attempts")
+    check(trips_split == sum(shard_trips),
+          f"path 15(a): the split run's trips {trips_split} are not its shards' {shard_trips} summed")
+    check(k1_split == two.size * k1_init + trips_split,
+          f"path 15(a): the split run launched K1 {k1_split} times, not {two.size} × {k1_init} "
+          f"+ {trips_split} (its shards' initializations and trips)")
+    return k1 + k1_ref + k1_split
+
+
+def phase_cost(card, trip_s):
+    """Path 15(b), batch_cost_analysis (see the module docstring). Returns
+    K1's launches over the phase."""
+    import petlion_tpu_torch as ptt
+    from petlion_tpu_torch import main_path as mp
+    from petlion_tpu_torch.ops import cost, gj_kernel as gk
+
+    p = mp.model(device="cuda")
+    gk.reset_launch_counts()
+    kw = dict(I=-1.0, SOC=1.0, outputs=("t", "V"))
+    for name, route in (("path 1", mp.PATH1), ("path 2", mp.PATH2)):
+        t0 = time.perf_counter()
+        c = ptt.batch_cost_analysis(p, mp.TF, theta_batch=mp.theta_batch(0), route=route, **kw)
+        wall = time.perf_counter() - t0
+        print(f"path 15(b) batch_cost_analysis of {name}, {mp.B_MAIN} float32 cells, one trip "
+              f"({wall:.3f} s with the initialization): {c['flops']:.6e} flops, "
+              f"{c['bytes accessed']:.6e} bytes accessed, {c['ops']} aten ops; kernels "
+              f"{c['kernels']}; over the mean trip wall of path 1's warm run "
+              f"{trip_s * 1e3:.2f} ms: "
+              f"{c['flops'] / trip_s / 1e9:.3f} GFLOP/s ({c['flops'] / trip_s / cost.PEAK_FP32_FLOP_PER_S:.4%} "
+              f"of the float32 peak), {c['bytes accessed'] / trip_s / 1e9:.3f} GB/s "
+              f"({c['bytes accessed'] / trip_s / cost.PEAK_BYTES_PER_S:.4%} of HBM's) [{card}]")
+        check(c["flops"] > 0 and c["bytes accessed"] > 0, f"path 15(b) {name}: empty count")
+        needs = ("gj_inverse",) if route == mp.PATH1 else ("gj_blocks", "dchain")
+        for k in needs:
+            check(c["kernels"].get(k, {}).get("launches", 0) > 0,
+                  f"path 15(b) {name}: the trip counted no {k} launch")
+        tb = {k: v[:MESH_B] for k, v in mp.theta_batch(0).items()}
+        both = {dev: ptt.batch_cost_analysis(p, mp.TF, theta_batch=tb, route=route,
+                                             device=dev, **kw)
+                for dev in ("cuda", "cpu")}
+        gpu, cpu = both["cuda"], both["cpu"]
+        rel = {key: abs(gpu[key] - cpu[key]) / cpu[key] for key in ("flops", "bytes accessed")}
+        print(f"  at {MESH_B} cells: card {gpu['flops']:.6e} flops, {gpu['bytes accessed']:.6e} "
+              f"bytes, {gpu['ops']} ops; CPU {cpu['flops']:.6e}, {cpu['bytes accessed']:.6e}, "
+              f"{cpu['ops']} ops; relative gaps {rel} (at most 1%)")
+        for key, r in rel.items():
+            check(r <= 0.01, f"path 15(b) {name}: the card's {key} is {r:.3%} off the CPU's")
+        check(gpu["kernels"] == cpu["kernels"], f"path 15(b) {name}: kernel counts differ "
+              f"between the card {gpu['kernels']} and the CPU {cpu['kernels']}")
+    return gk.LAUNCHES["gj_inverse"]
+
+
+def _kernel_events(path, symbol):
+    """(events, CUDA kernel events, kernel events whose name holds `symbol`)
+    of a Chrome trace as torch.profiler writes it (each event's "cat" then
+    its "name", one line or two), by a regular expression over the file: a
+    run's trace holds millions of events (tests/test_torch_api_tools.py
+    parses a small one as JSON)."""
+    import re
+    with open(path, "rb") as f:
+        data = f.read()
+    names = re.findall(rb'"cat":\s*"kernel",\s*"name":\s*"([^"]*)"', data)
+    if not names:   # show how the trace names kernels, if it does
+        at = data.find(b"kernel")
+        print(f"  no kernel event matched; the trace near its first 'kernel': "
+              f"{data[max(at - 300, 0):at + 300] if at >= 0 else None!r}")
+    return data.count(b'"ph":'), len(names), sum(symbol.encode() in n for n in names)
+
+
+def phase_profile(card):
+    """Path 15(c), trace and Timer around one run (see the module docstring).
+    Returns K1's launches in it."""
+    import glob
+    import shutil
+    import numpy as np
+    import petlion_tpu_torch as ptt
+    from petlion_tpu_torch import main_path as mp
+    from petlion_tpu_torch.ops import gj_kernel as gk
+    from petlion_tpu_torch.utils.profiling import Timer, trace
+
+    p = mp.model(device="cuda")
+    tb = {k: v[:MESH_B] for k, v in mp.theta_batch(0).items()}
+    logdir = os.path.join(HERE, "build", "trace")
+    shutil.rmtree(logdir, ignore_errors=True)
+    tm = Timer()
+    name = f"path 1, {MESH_B} cells"
+    out = []
+    gk.reset_launch_counts()
+    t0 = time.perf_counter()
+    with tm.phase(name, sync=out), trace(logdir) as d:
+        out.append(ptt.batch_simulate(p, mp.TF, I=-1.0, SOC=1.0, theta_batch=tb,
+                                      outputs=("t", "V")))
+    wall = time.perf_counter() - t0
+    k1 = gk.LAUNCHES["gj_inverse"]
+    report = tm.report()
+    files = glob.glob(os.path.join(d, "trace_*.json"))
+    check(len(files) == 1, f"path 15(c): trace wrote {files}")
+    t0 = time.perf_counter()
+    symbol = mp.KERNEL_SYMBOLS["gj_inverse"]
+    n_events, n_kernels, n_k1 = _kernel_events(files[0], symbol)
+    t_scan = time.perf_counter() - t0
+    print(f"path 15(c) trace of path 1 at {MESH_B} cells: {wall:.3f} s traced and exported, "
+          f"{os.path.getsize(files[0]) / 1e6:.1f} MB, scanned in {t_scan:.3f} s: {n_events} "
+          f"events, {n_kernels} CUDA kernel events, {n_k1} of them {symbol} (K1 launches in the "
+          f"run {k1}); Timer: {report} [{card}]")
+    shutil.rmtree(logdir, ignore_errors=True)
+    check(bool(np.isin(out[0].flag.cpu().numpy(), (0, 1, 3)).all()), "path 15(c): bad flags")
+    check(n_k1 > 0, f"path 15(c): the trace holds no {symbol} event")
+    check(report.startswith(f"{name}: best") and "over 1 calls" in report,
+          f"path 15(c): Timer reported {report!r}")
+    return k1
+
+
+def start_path15_child(card, trip_s):
+    """Start path 15(a)-(c) in a child process of this script,
+    `chip_smoke.py --path15 CARD TRIP_S`, its output to build/path15.out.
+    Returns ("path 15(a-c)", process, start time on the epoch clock)."""
+    out = os.path.join(HERE, "build", "path15.out")
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out, "w") as f:
+        proc = subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--path15", card, repr(trip_s)],
+            cwd=HERE, stdout=f, stderr=subprocess.STDOUT)
+    return "path 15(a-c)", proc, time.time()
+
+
+def finish_path15_child(child):
+    """Wait for path 15(a)-(c)'s child (PATH15_TIMEOUT from its start),
+    print its output and check it exited 0. Returns its K1 launches by
+    phase (its result line, a JSON object)."""
+    _, proc, _ = child
+    wait_for([child], PATH15_TIMEOUT)
+    with open(os.path.join(HERE, "build", "path15.out")) as f:
+        text = f.read()
+    print(text.rstrip())
+    check(proc.returncode == 0, f"path 15(a-c) exited {proc.returncode}")
+    last = [line for line in text.splitlines() if line.startswith('{"k1"')]
+    check(len(last) == 1, "path 15(a-c) printed no result")
+    return json.loads(last[0])["k1"]
+
+
+def path15_main(card, trip_s):
+    """The child of start_path15_child: path 15(a)-(c) on the card, then no
+    tangent launch (the parent's tangent guard does not see this process);
+    prints its phase walls and {"k1": {phase: launches}} last."""
+    import numpy as np
+    import torch
+    from petlion_tpu_torch.ops import gj_kernel as gk
+    torch.backends.cuda.matmul.allow_tf32 = False
+    k1 = dict(a=phase_mesh(card, np.load(ORACLE)))
+    mark("path 15(a)")
+    k1["b"] = phase_cost(card, trip_s)
+    mark("path 15(b)")
+    k1["c"] = phase_profile(card)
+    mark("path 15(c)")
+    stray = {k: gk.LAUNCHES[k] for k in TANGENT_KERNELS if gk.LAUNCHES[k]}
+    check(not stray, f"path 15 launched tangent kernels: {stray}")
+    print("path 15 phase walls: " + ", ".join(f"{name} {wall:.1f} s"
+                                              for name, wall in phase_walls()))
+    print(json.dumps({"k1": k1}))
+    return 0
+
+
+def start_examples():
+    """Start path 15(d)'s examples (see the module docstring), each as
+    `python -m` on the card with one host thread of torch, all at once; their
+    output goes to build/examples/<name>.out and .err. Returns
+    [(name, process, start time on the epoch clock)]."""
+    cwd = os.path.join(HERE, "build", "examples")
+    os.makedirs(cwd, exist_ok=True)
+    env = dict(os.environ, OMP_NUM_THREADS="1",
+               PYTHONPATH=os.pathsep.join(filter(None, [HERE, os.environ.get("PYTHONPATH")])))
+    procs = []
+    for name in EXAMPLES_ON_CARD:
+        with open(os.path.join(cwd, f"{name}.out"), "w") as out, \
+                open(os.path.join(cwd, f"{name}.err"), "w") as err:
+            procs.append((name, subprocess.Popen(
+                [sys.executable, "-m", f"petlion_tpu_torch.examples.{name}", "--device", "cuda"],
+                cwd=cwd, env=env, stdout=out, stderr=err), time.time()))
+    return procs
+
+
+def wait_for(children, timeout):
+    """Wait until every child has exited; fail once one has run `timeout`
+    seconds."""
+    while any(proc.poll() is None for _, proc, _ in children):
+        late = [n for n, proc, t0 in children
+                if proc.poll() is None and time.time() - t0 > timeout]
+        check(not late, f"still running after {timeout} s: {late}")
+        time.sleep(0.2)
+
+
+def finish_examples(card, procs):
+    """Wait for the examples and check each: exit 0 and its expected line.
+    An example's wall runs from its start to its last line of output (its
+    output file's modification time)."""
+    import torch
+    count = torch.cuda.device_count()
+    expect = dict(EXAMPLES_ON_CARD, multichip_sweep=f"completed {64 * count}/{64 * count}")
+    wait_for(procs, EXAMPLE_TIMEOUT)
+    cwd = os.path.join(HERE, "build", "examples")
+    ends = {name: os.path.getmtime(os.path.join(cwd, f"{name}.out")) for name, _, _ in procs}
+    t_start = min(t0 for _, _, t0 in procs)
+    print(f"path 15(d) {len(procs)} examples at once on the card, beside path 14: "
+          f"{max(ends.values()) - t_start:.1f} s to the last one's last line [{card}]")
+    for name, proc, t0 in procs:
+        with open(os.path.join(cwd, f"{name}.out")) as f:
+            out = f.read()
+        last = (out.strip().splitlines() or [""])[-1]
+        print(f"  {name}: exit {proc.returncode}, {ends[name] - t0:.3f} s; last line: {last}")
+        if proc.returncode != 0:
+            with open(os.path.join(cwd, f"{name}.err")) as f:
+                err = f.read()
+            check(False, f"path 15(d) example {name} exited {proc.returncode}:\n"
+                         f"{out[-1500:]}\n{err[-3000:]}")
+        check(expect[name] in out, f"path 15(d) example {name} did not print "
+                                   f"{expect[name]!r}:\n{out[-2000:]}")
+
+
+def stop_children(children):
+    """Kill the children still running (after a failure)."""
+    for _, proc, _ in children:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
 
 def main():
     import numpy as np
@@ -1874,6 +2155,8 @@ def main():
         print("chip_smoke: torch.cuda.is_available() is False; needs an NVIDIA GPU",
               file=sys.stderr)
         return 1
+    if sys.argv[1:2] == ["--path15"]:
+        return path15_main(sys.argv[2], float(sys.argv[3]))
     try:
         card = phase_device()
         phase_build()
@@ -1903,12 +2186,12 @@ def main():
         mark("K1t")
         k3t = phase_k3t(Dp, sizes)
         mark("K3t")
-        # paths 1-13 launch no tangent kernel: every reset checks it
+        # paths 1-13 and 15 launch no tangent kernel: every reset checks it
         from petlion_tpu_torch.ops import gj_kernel
         for k in TANGENT_KERNELS:
             gj_kernel.LAUNCHES[k] = 0
         lift_tangent_guard = guard_tangent_launches()
-        launches, path1 = phase_main(card)
+        launches, path1, trip_s = phase_main(card)
         mark("paths 1-2")
         oracle = np.load(ORACLE)
         k1_simulate, fast3 = phase_simulate(card, oracle)
@@ -1938,14 +2221,25 @@ def main():
         mark("path 13")
         gj_kernel.reset_launch_counts()     # the last check of paths 1-13
         lift_tangent_guard()
-        tangent_launches = phase_estimation(card)
-        mark("path 14")
+        # path 15 runs in processes of its own beside path 14, on other host
+        # cores: the script's time limit
+        children = [start_path15_child(card, trip_s)] + start_examples()
+        try:
+            tangent_launches = phase_estimation(card)
+            mark("path 14")
+            k1_15 = finish_path15_child(children[0])
+            mark("path 15(a-c)")
+            finish_examples(card, children[1:])
+            mark("path 15(d)")
+        finally:
+            stop_children(children)
     except Exception:   # report any phase failure and exit non-zero
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)
         return 1
+    k1_path15 = sum(k1_15.values())
     k1_launches = (launches["path 1"]["gj_inverse"] + k1_simulate + k1_tstops + k1_gitt
-                   + k1_cccv + k1_protocol + k1_options + k1_dense)
+                   + k1_cccv + k1_protocol + k1_options + k1_dense + k1_path15)
     print(f"K1 launches: path 1 {launches['path 1']['gj_inverse']}, simulate "
           f"{k1_simulate}, tstops {k1_tstops}, gitt {k1_gitt}, cccv {k1_cccv}, protocol "
           f"(path 8) {k1_protocol}, in all {k1_launches}; path 7 {sei1['gj_inverse']} "
@@ -1953,7 +2247,8 @@ def main():
           f"variants {k1_variants}; path 7's full-kernel route: K2 {sei2['gj_blocks']}, "
           f"K3 {sei2['dchain']}; path 9 float64 {k1_thermal} at n = 121; pivoted LU "
           f"factorizations: path 9 float32 {lu_thermal}, path 10's first chunk {lu_batched}; "
-          f"paths 11-12 {k1_options}, path 13 {k1_dense} at n = 71 and {k1_n101} at n = 101")
+          f"paths 11-12 {k1_options}, path 13 {k1_dense} at n = 71 and {k1_n101} at n = 101; "
+          f"path 15 {k1_path15} ((a) {k1_15['a']}, (b) {k1_15['b']}, (c) {k1_15['c']})")
     print("phase walls: " + ", ".join(f"{name} {wall:.1f} s" for name, wall in phase_walls()))
     print(f"chip_smoke wall: {time.time() - T_START:.1f} s")
     records = [

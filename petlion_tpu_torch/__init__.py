@@ -13,6 +13,8 @@ Entry points run on CUDA unless the caller passes ``device="cpu"``.
     sol = simulate_protocol(p, [dict(I=2, V_max=4.1), dict(V="hold")], SOC=0)
     rs  = batch_protocol(p, [...], SOC=0, theta_batch={...})  # per segment
     J, th0 = estimation.sensitivities(p, ["D_sp"], t, I_crate=-1)  # ∂V/∂θ
+    res = batch_simulate(p, ..., mesh=make_cell_mesh())   # cells over cards
+    batch_cost_analysis(p, 3.9e3, I=-1, SOC=1, n_cells=64)  # one trip's work
 """
 
 from .chemistry import LCO, NMC, NMC_LGM50
@@ -29,13 +31,16 @@ from .physics.transport import (D_s_eff, D_s_eff_isothermal, rxn_rate,
                                 D_eff_linear_one_term, K_eff, K_eff_isothermal,
                                 thermodynamic_factor,
                                 thermodynamic_factor_linear)
-from .parallel.batch import batch_simulate
+from .parallel.batch import batch_cost_analysis, batch_simulate, make_cell_mesh
 from .physics.residuals import ModelConfig, calc_I1C, residual_core
 from .protocols import batch_protocol, simulate_protocol
 from .sim import (Model, calc_OCV, calc_R_internal, default_dtype, petlion,
                   simulate, simulate_cont)
 from .solution import RunResult, Solution, reset_t
 from . import estimation
+
+
+__version__ = "0.1.0"
 
 
 def final_exit_reason(sol: Solution) -> str:
@@ -59,6 +64,7 @@ __all__ = [
     "K_eff", "K_eff_isothermal", "thermodynamic_factor",
     "thermodynamic_factor_linear", "kinetics", "ocv", "transport",
     "simulate_protocol", "batch_protocol", "default_dtype", "estimation",
+    "batch_cost_analysis", "make_cell_mesh",
 ]
 
 # the JAX package's reference-name aliases, for what is ported

@@ -36,6 +36,7 @@ import ctypes
 
 import torch
 
+from . import cost
 from .dual import has_tangent, primal, refuse
 from .gj_kernel import (MAX_SMEM_BYTES, check_launch, gj_inverse,
                         gj_inverse_inplace, gj_tangent_plain, library)
@@ -79,15 +80,7 @@ def inv_equil_inplace(A):
     return gj_inverse_inplace(As) * rc[..., :, None] * rr[..., None, :]
 
 
-def out_shapes(n: int, sizes) -> list:
-    """Per-cell shapes of the chain's outputs, in order."""
-    shapes, rest = [], n
-    for nk in sizes:
-        r = rest - nk
-        shapes += [(nk, nk), (nk, r), (r, nk)]
-        rest = r
-    shapes.append((rest, rest))
-    return shapes
+out_shapes = cost.chain_shapes     # per-cell shapes of the outputs, in order
 
 
 def dchain_plain(D, sizes, inverse=inv_equil):
@@ -170,6 +163,7 @@ def dchain_cuda(D, sizes):
     return outs
 
 
+@cost.counted("dchain")
 def _dchain_dispatch(D, sizes):
     if D.device.type == "cpu":
         return dchain_plain(D, sizes)
@@ -269,6 +263,7 @@ def dchain_tangent_cuda(D, dD, outs, sizes):
     return touts
 
 
+@cost.counted("dchain_tangent")
 def dchain_tangent_hot(D, dD, outs, sizes):
     """The chain's tangent: K3ᵗ for CUDA tensors, the plain version for CPU
     tensors."""

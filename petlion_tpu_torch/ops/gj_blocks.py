@@ -25,6 +25,7 @@ import ctypes
 
 import torch
 
+from . import cost
 from .dual import has_tangent, refuse
 from .gj_kernel import Inverse, check_launch, gj_inverse, library
 
@@ -107,6 +108,7 @@ def gj_blocks_cuda(A):
     return out
 
 
+@cost.counted("gj_blocks")
 def _gj_blocks_dispatch(A):
     if A.device.type == "cpu":
         return gj_blocks_plain(A)

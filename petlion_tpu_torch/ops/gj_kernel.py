@@ -38,10 +38,12 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 import torch
 
+from . import cost
 from .dual import has_tangent, refuse
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
@@ -54,16 +56,19 @@ MAX_SMEM_BYTES = 232448
 # largest n the kernel's register tiles take (csrc/gj_inverse.cu max_n)
 MAX_N = {torch.float32: 176, torch.float64: 128}
 
-# launches of each kernel, and of each kernel by matrix size n; reset with
+# launches of each kernel, and of each kernel by matrix size n, over every
+# thread (a run split over devices counts each shard's); reset with
 # reset_launch_counts()
 LAUNCHES = {name: 0 for name in KERNEL_SOURCES}
 LAUNCHES_BY_N = {name: {} for name in KERNEL_SOURCES}
+_COUNT_LOCK = threading.Lock()
 
 
 def reset_launch_counts():
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
-        LAUNCHES_BY_N[k].clear()
+    with _COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
+            LAUNCHES_BY_N[k].clear()
 
 
 # ---------------------------------------------------------------------------
@@ -164,6 +169,7 @@ def _best_bs(n: int) -> int:
 
 BUILD_LOGS: dict = {}     # source name -> nvcc output of its last build
 _libs: dict = {}
+_BUILD_LOCK = threading.Lock()    # one build and load of a library at a time
 
 
 def _nvcc() -> str:
@@ -217,18 +223,22 @@ def library(name: str, launchers: dict):
     """The loaded library of ``csrc/<name>.cu`` (compiled at first use).
     `launchers` maps each exported launcher to its ctypes argument types;
     every launcher returns a cudaError_t code, and ``<name>_error_string``
-    turns a code into text."""
-    if name not in _libs:
-        compile_all((name,))
-        lib = ctypes.CDLL(str(_so_path(name)))
-        for fn_name, argtypes in launchers.items():
-            fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
-        err = getattr(lib, f"{name}_error_string")
-        err.argtypes = [ctypes.c_int]
-        err.restype = ctypes.c_char_p
-        _libs[name] = lib
+    turns a code into text. Threads that ask together share one build."""
+    lib = _libs.get(name)
+    if lib is not None:
+        return lib
+    with _BUILD_LOCK:
+        if name not in _libs:
+            compile_all((name,))
+            lib = ctypes.CDLL(str(_so_path(name)))
+            for fn_name, argtypes in launchers.items():
+                fn = getattr(lib, fn_name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            err = getattr(lib, f"{name}_error_string")
+            err.argtypes = [ctypes.c_int]
+            err.restype = ctypes.c_char_p
+            _libs[name] = lib
     return _libs[name]
 
 
@@ -238,8 +248,9 @@ def check_launch(lib, name: str, rc: int, n: int):
     if rc != 0:
         msg = getattr(lib, f"{name}_error_string")(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} ({rc})")
-    LAUNCHES[name] += 1
-    LAUNCHES_BY_N[name][n] = LAUNCHES_BY_N[name].get(n, 0) + 1
+    with _COUNT_LOCK:
+        LAUNCHES[name] += 1
+        LAUNCHES_BY_N[name][n] = LAUNCHES_BY_N[name].get(n, 0) + 1
 
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
@@ -278,6 +289,7 @@ def gj_inverse_cuda(A):
     return out
 
 
+@cost.counted("gj_inverse")
 def _gj_inverse_dispatch(A):
     n = A.shape[-1]
     if A.device.type == "cpu":
@@ -338,6 +350,7 @@ def gj_tangent_cuda(X, dA):
     return out
 
 
+@cost.counted("gj_tangent")
 def gj_tangent_hot(X, dA):
     """The tangent of (..., n, n) inverses: K1ᵗ for CUDA tensors, the plain
     version for CPU tensors."""

@@ -149,7 +149,7 @@ class ColoredJacobian:
         seeds = np.zeros((self.n_colors, n), dtype=np.float64)
         seeds[self.colors, np.arange(n)] = 1.0
         self._seeds = seeds
-        self._seeds_dev = {}    # (device, dtype) -> seeds; and the dense mask
+        self._seeds_dev = {}    # (device, dtype) -> seeds, colors, dense mask
         self._mask = pattern.astype(np.float64)
         # the last row is computed exactly by a reverse pass
         self._mask_body = self._mask.copy()
@@ -158,23 +158,25 @@ class ColoredJacobian:
     def compressed(self, g: Callable, y, data: dict):
         """(JS, last_row): JS (B, n_colors, N) holds the colored sweeps,
         J[b, i, j] = JS[b, color[j], i] on the pattern; last_row (B, N)."""
-        key = (y.device, y.dtype)
-        if key not in self._seeds_dev:
-            self._seeds_dev[key] = torch.as_tensor(self._seeds, dtype=y.dtype,
-                                                   device=y.device)
-        return (stacked_jvp(g, y, data, self._seeds_dev[key]),
+        return (stacked_jvp(g, y, data, self.device_tables(y)[0]),
                 last_row_grad(g, y, data))
+
+    def device_tables(self, like):
+        """(seeds, colors, mask) as tensors on `like`'s device and dtype,
+        made once per device and dtype."""
+        key = (like.device, like.dtype)
+        if key not in self._seeds_dev:
+            self._seeds_dev[key] = (
+                torch.as_tensor(self._seeds, dtype=like.dtype, device=like.device),
+                torch.as_tensor(self.colors, dtype=torch.int64, device=like.device),
+                torch.as_tensor(self._mask_body, dtype=like.dtype, device=like.device))
+        return self._seeds_dev[key]
 
     def __call__(self, g: Callable, y, data: dict):
         """The dense Newton matrix (B, N, N) from the colored sweeps (on the
         pattern) and the exact control row."""
         JS, last = self.compressed(g, y, data)
-        key = ("mask", y.device, y.dtype)
-        if key not in self._seeds_dev:
-            self._seeds_dev[key] = (
-                torch.as_tensor(self.colors, dtype=torch.int64, device=y.device),
-                torch.as_tensor(self._mask_body, dtype=y.dtype, device=y.device))
-        colors, mask = self._seeds_dev[key]
+        _, colors, mask = self.device_tables(y)
         J = JS[:, colors, :].transpose(1, 2) * mask     # J[b,i,j] = JS[b,c[j],i]
         return torch.cat([J[:, :-1], last[:, None, :]], dim=1)
 

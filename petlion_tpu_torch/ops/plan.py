@@ -107,6 +107,17 @@ class JacobianPlan:
                                           like.device, like.dtype)
         return self._dev[key]
 
+    def prepare(self, like):
+        """Make every device table of the plan for `like`'s device and dtype
+        now, so that runs on several host threads (a mesh's shards) only
+        read them."""
+        if self.use_schur:
+            self.device_specs(like)
+        self._alg_meta(like)
+        self.colored.device_tables(like)
+        if self.analytic is not None:
+            self.analytic._consts(like)
+
     def _alg_meta(self, like):
         """Metadata of the algebraic-block colored Jacobian (consistent
         initialization), as tensors on `like`'s device."""

@@ -21,7 +21,7 @@ from typing import Optional
 import torch
 
 from .ops.plan import Route, get_plan
-from .parallel.batch import cell_theta, cell_values
+from .parallel.batch import _mesh_device, cell_theta, cell_values, run_split
 from .physics.initial_guess import initial_guess
 from .sim import _OPT_KEYS, Model, append_run, resolve_device
 from .solution import Solution
@@ -37,11 +37,13 @@ def _prep(p: Model, segment_dicts, opts_overrides):
     return (opts,) + build_segments(p, segment_dicts)
 
 
-def _run(p, segment_dicts, th, soc0, opts_overrides, fast_solver, route, kw):
-    """Every segment over the cells of `th` (B, 1) from SOC `soc0` (B,)."""
+def _run(p, segment_dicts, th, soc0, opts_overrides, fast_solver, route):
+    """Every segment over the cells of `th` (B, 1) from SOC `soc0` (B,), on
+    soc0's device."""
     opts, segments, values, tfs, bounds_list = _prep(p, segment_dicts,
                                                      opts_overrides)
     B = soc0.shape[0]
+    kw = dict(dtype=soc0.dtype, device=soc0.device)
     bounds_list = tuple({k: cell_values(v, B, kw) for k, v in b.items()}
                         for b in bounds_list)
     with torch.no_grad():
@@ -69,7 +71,7 @@ def simulate_protocol(p: Model, segment_dicts, *, SOC: Optional[float] = None,
     th = cell_theta(p, None, 1, kw)
     soc0 = cell_values(p.opts.SOC if SOC is None else SOC, 1, kw)
     opts, segments, results = _run(p, segment_dicts, th, soc0, opts_overrides,
-                                   fast_solver, route, kw)
+                                   fast_solver, route)
 
     sol = Solution()
     t_offset = 0.0
@@ -96,15 +98,22 @@ def batch_protocol(p: Model, segment_dicts, *,
     cells axis per entry) or `n_cells` copies of the model's, SOC a number
     or one per cell. Returns the per-segment list of RunResultDev, each with
     a leading cells axis (y_final is the solver's state: with the thermal
-    model its T block is T − T_amb)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            f"mesh= (the cells axis split over devices along {axis_name!r}) "
-            f"is not ported")
+    model its T block is T − T_amb). `mesh` (``make_cell_mesh``, its axis
+    named `axis_name`) splits the cells as in ``batch_simulate``: one
+    contiguous shard a mesh device, each from a host thread of its own, the
+    segments' results concatenated on the mesh's first device."""
     dtype = p.dtype if dtype is None else dtype
+    if mesh is not None:
+        device = _mesh_device(mesh, axis_name, device)
     dev = resolve_device(p.device if device is None else device, dtype)
     kw = dict(dtype=dtype, device=dev)
     th = cell_theta(p, theta_batch, n_cells, kw)
     soc0 = cell_values(p.opts.SOC if SOC is None else SOC, th["l_p"].shape[0], kw)
-    return _run(p, segment_dicts, th, soc0, opts_overrides, fast_solver,
-                route, kw)[2]
+
+    def go(c):
+        return _run(p, segment_dicts, c["th"], c["soc0"], opts_overrides,
+                    fast_solver, route)[2]
+    if mesh is None:
+        return go(dict(th=th, soc0=soc0))
+    plan = get_plan(p.cfg, p.theta_floats(), route) if fast_solver else None
+    return run_split(mesh, go, dict(th=th, soc0=soc0), plan)

@@ -13,6 +13,7 @@ version for a CPU tensor.
 
 from __future__ import annotations
 
+import threading
 from typing import NamedTuple
 
 import torch
@@ -71,8 +72,9 @@ class RefinedLU(NamedTuple):
 
 
 # pivoted LU factorizations (torch.linalg.lu_factor_ex calls) since the last
-# reset: the LU routes' count beside the kernels' launches
+# reset, over every thread: the LU routes' count beside the kernels' launches
 LU_FACTORS = [0]
+_LU_LOCK = threading.Lock()
 
 
 def pivoted_lu(A):
@@ -81,7 +83,8 @@ def pivoted_lu(A):
     (LAPACK is not given it: an identity stands in) or meets an exact zero
     pivot (info ≠ 0) gets a NaN factor, so its solves are NaN and its
     Newton iteration fails, as a singular inverse does."""
-    LU_FACTORS[0] += 1
+    with _LU_LOCK:
+        LU_FACTORS[0] += 1
     bad = ~torch.isfinite(A).all(dim=-1).all(dim=-1)
     eye = torch.eye(A.shape[-1], dtype=A.dtype, device=A.device)
     A = torch.where(bad[..., None, None], eye, A)

@@ -25,6 +25,7 @@ refactor with it.
 
 from __future__ import annotations
 
+import threading
 import time
 from typing import NamedTuple
 
@@ -174,13 +175,26 @@ def initial_current_guess(spec: control.ControlSpec, value, y0, th,
 # a re-initialization after an input discontinuity and the host seconds
 # spent in those re-initializations, the trips that factored the Newton
 # matrix, and each run's factorizations per cell ((B,) tensors: one per
-# attempt, or under Jacobian reuse one per chunk)
+# attempt, or under Jacobian reuse one per chunk). A run split over devices
+# (``parallel.batch``, mesh=) adds every shard's: its trips are the sum of
+# the shards' trips, and `cell_factors` takes one entry a shard.
 TRIPS = {"trips": 0, "reinit": 0, "reinit_s": 0.0, "factor_trips": 0,
          "cell_factors": []}
+_TRIPS_LOCK = threading.Lock()
+
+# private to ``parallel.batch.batch_cost_analysis``: `.fn`, where set, is
+# called in this thread with each trip's index at the head of the trip
+_TRIP_HOOK = threading.local()
 
 
 def reset_trip_counts():
-    TRIPS.update(trips=0, reinit=0, reinit_s=0.0, factor_trips=0, cell_factors=[])
+    with _TRIPS_LOCK:
+        TRIPS.update(trips=0, reinit=0, reinit_s=0.0, factor_trips=0, cell_factors=[])
+
+
+def _count(key, n=1):
+    with _TRIPS_LOCK:
+        TRIPS[key] += n
 
 
 def run_once(*, y_start, soc0, value, tf, th, bounds: dict,
@@ -286,8 +300,8 @@ def run_once(*, y_start, soc0, value, tf, th, bounds: dict,
         h_new = bdf.initial_step_size(init2.y, init2.yp, atol, opts.reltol,
                                       torch.clamp_min(tf - t_jump, 1.0))
         st = bdf.restart(st, jumped, t_jump, init2.y, init2.yp, h_new)
-        TRIPS["reinit"] += 1
-        TRIPS["reinit_s"] += time.perf_counter() - start
+        _count("reinit")
+        _count("reinit_s", time.perf_counter() - start)
         return st, jumped
 
     vec_outs = _vector_outputs(opts, cfg)
@@ -334,7 +348,12 @@ def run_once(*, y_start, soc0, value, tf, th, bounds: dict,
                           torch.full_like(tstops, float("inf")))
         return torch.minimum(tf_cells, torch.amin(nxt, dim=1))
 
+    trip_hook = getattr(_TRIP_HOOK, "fn", None)
+    trip = 0
     while True:
+        if trip_hook is not None:
+            trip_hook(trip)
+        trip += 1
         st0 = rs.bdf
         active = ((rs.flag == EXIT_SIMULATING) & (st0.t < tf)
                   & (st0.status == bdf.OK) & (st0.n_steps < opts.maxiters))
@@ -346,13 +365,13 @@ def run_once(*, y_start, soc0, value, tf, th, bounds: dict,
             go = bool(active.any())
         if not go:
             break
-        TRIPS["trips"] += 1
+        _count("trips")
         if K:
             pred = bdf.predict(st0, t_bound, stepper.hmin, stepper.hmax)
             if refactor:
                 # every cell is factored at its predictor; the cells that
                 # start a chunk keep theirs
-                TRIPS["factor_trips"] += 1
+                _count("factor_trips")
                 _, _, t_new, y_pred, c0, psi_over_h = pred
                 new = jac_and_factor(t_new, y_pred, c0, psi_over_h)
                 fac = new if fac is None else _select_tree(need, new, fac)
@@ -363,7 +382,7 @@ def run_once(*, y_start, soc0, value, tf, th, bounds: dict,
             st, acc, done, tries_new = stepper.step(st0, t_bound, tries, fac, c0_f,
                                                     pred)
         else:
-            TRIPS["factor_trips"] += 1
+            _count("factor_trips")
             n_factors = n_factors + active.to(torch.int64)
             st, acc, done, tries_new = stepper.step(st0, t_bound, tries)
         tries = torch.where(active, torch.where(done, zeros_i, tries_new), tries)

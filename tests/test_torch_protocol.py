@@ -149,8 +149,10 @@ def test_batch_protocol_matches_jax(request):
 def test_segments_and_unported_options():
     """`build_segments` reads each segment's mode (a given setpoint, a hold
     measured from the carry, rest; the dT hold is a given 0), its bounds and
-    duration; unknown keys and `mesh=` raise; `fast_solver=False` (ported
-    since) runs a segment on the dense route."""
+    duration; unknown keys raise, and so do a `mesh=` that is not a
+    ``make_cell_mesh`` mesh and a batch that does not divide over the mesh
+    (`mesh=` itself is ported since); `fast_solver=False` (ported since)
+    runs a segment on the dense route."""
     p = ptt.petlion(ptt.LCO, device="cpu", temperature=True)
     segs, values, tfs, bounds = build_segments(
         p, [dict(I=4, V_max=4.1, tf=60.0), dict(dT="hold"), dict(V="hold"),
@@ -165,8 +167,10 @@ def test_segments_and_unported_options():
         Segment(spec=segs[0].spec, value_mode="later")
     with pytest.raises(TypeError, match="unknown"):
         build_segments(p, [dict(I=1, wobble=3)])
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(TypeError, match="mesh"):
         ptt.batch_protocol(p, CCCV, n_cells=2, mesh=object())
+    with pytest.raises(ValueError, match="do not divide"):
+        ptt.batch_protocol(p, CCCV, n_cells=3, mesh=ptt.make_cell_mesh(devices=["cpu"] * 2))
     dense = ptt.simulate_protocol(p, [dict(I=-1, tf=5.0)], SOC=0.5, fast_solver=False)
     assert dense.exit_reasons() == ["Final time reached"]
     with pytest.raises(TypeError, match="unknown"):

@@ -47,14 +47,17 @@ Phases, each of which must pass (any failure exits non-zero and prints no
    stream while the host queues the launches, so the time is the device's;
    the host µs per wrapper call are printed beside it;
    the tangent kernels of path 14 (phase_k1t, phase_k3t): K1ᵗ (dX =
-   −X·dA·X) at (1, 71) and (2, 71) in float64, (1024, 71) in float32,
-   (10240, 10) and (1024, 30) in float32 and float64; K3ᵗ on the permuted
-   real cores K3 takes (B = 1, 5, 1024) in float32 and float64; each held
-   against its plain version (float64 within 1e-10 of the tangent's scale;
-   float32 error against float64 at most 4× the plain float32 version's
-   plus 1e-5) and timed beside its bound, the plain version and two
-   torch.bmm calls. From here until path 14 every reset of the launch
-   counts checks that no tangent kernel launched;
+   −X·dA·X) at (1, 71), (2, 71), (10, 10) and (1, 30) in float64 (path
+   14's shapes), (1024, 71) in float32, (10240, 10) and (1024, 30) in
+   float32 and float64; K3ᵗ on the permuted real cores K3 takes (B = 1, 5,
+   1024) in float32 and float64; each held against its plain version
+   (float64 within 1e-10 of the tangent's scale; float32 error against
+   float64 at most 4× the plain float32 version's plus 1e-5) and timed
+   beside its first design's time, its bound, the plain version and two
+   torch.bmm calls, with the host µs a call, the launch plan (held to the
+   compiled source's) and the registers and spills of every kernel
+   instance. From here until path 14 every reset of the launch counts
+   checks that no tangent kernel launched;
 4. main paths (petlion_tpu_torch/main_path.py): `batch_simulate` of 1024 LCO
    cells, a 1C discharge from SOC 1 in float32 with the benchmark options,
    D_sp/D_sn/k_p/k_n perturbed ±5% per cell from a numpy seed (cell 0
@@ -936,26 +939,12 @@ def phase_cccv(card):
 
 
 def _ptxas_instance(log, tag):
-    """(registers, (spill store bytes, spill load bytes)) of the kernel
+    """(registers, (spill store bytes, spill load bytes)) of the last kernel
     instance whose mangled name contains `tag`, from nvcc's -Xptxas -v
-    output (None where ptxas did not say)."""
-    import re
-    regs = spill = None
-    cur = ""
-    for line in log.splitlines():
-        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
-        if m:
-            cur = m.group(1)
-            continue
-        if tag not in cur:
-            continue
-        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
-        if m:
-            spill = (int(m.group(1)), int(m.group(2)))
-        m = re.search(r"Used (\d+) registers", line)
-        if m:
-            regs = int(m.group(1))
-    return regs, spill
+    output ((None, None) where ptxas did not report one)."""
+    from petlion_tpu_torch.ops import gj_kernel as gk
+    rows = [r for r in gk.ptxas_report(log) if tag in r[0]]
+    return (rows[-1][1], (rows[-1][2], rows[-1][3])) if rows else (None, None)
 
 
 def phase_k1_core92(cores):
@@ -1623,20 +1612,56 @@ def _scaled(got, ref):
     return float((got.double() - ref).abs().max()) / float(ref.abs().max())
 
 
+# K1ᵗ's and K3ᵗ's times in their first design as PERF.md §6 records them
+# (the same card and script, an earlier run), printed beside each new time
+# for the reader and kept out of the kernels line: {(B, n, dtype): ms}
+K1T_BEFORE_MS = {(1, 71, "float64"): 0.0684, (2, 71, "float64"): 0.0679,
+               (1024, 71, "float32"): 0.2087, (10240, 10, "float32"): 0.0291,
+               (10240, 10, "float64"): 0.0393, (1024, 30, "float32"): 0.0218,
+               (1024, 30, "float64"): 0.0306}
+K3T_BEFORE_MS = {(1, "float64"): 0.0537, (1024, "float64"): 0.5354, (1024, "float32"): 0.1745}
+
+
+def _print_ptxas(name):
+    """Print, and return, the registers and spills of every instance of a
+    kernel library (the template arguments of its mangled names)."""
+    import re
+    from petlion_tpu_torch.ops import gj_kernel as gk
+    rows = []
+    for inst, regs, st, ld, _ in gk.ptxas_report(gk.BUILD_LOGS.get(name, "")):
+        m = re.search(r"kernelI(\w+?)E+vP", inst)
+        rows.append(dict(instance=m.group(1) if m else inst, registers=regs,
+                         spill_bytes=[st, ld]))
+    print(f"{name} instances (registers, spill stores/loads B): " + "; ".join(
+        f"{r['instance']}: {r['registers']}, {r['spill_bytes'][0]}/{r['spill_bytes'][1]}"
+        for r in rows))
+    return rows
+
+
+def _before(ms, before):
+    return ("not recorded" if before is None
+            else f"{before:.4f} ms in PERF.md ({before / ms:.2f}x now)")
+
+
 def phase_k1t():
     """K1ᵗ (csrc/gj_tangent.cu, dX = −X·dA·X) against its plain version at
-    (B, n) = (1, 71), (2, 71) in float64 (path 14's shapes: one cell a fitted
-    parameter), (1024, 71) in float32, (10240, 10) and (1024, 30) in float32
-    and float64 (K2's tangent), on equilibrated random matrices and their
-    inverses: in float64 within 1e-10 of the tangent's scale; in float32 its
-    error against float64 at most 4× the plain float32 version's plus 1e-5.
-    Each shape timed over rotating inputs behind the spin, beside its bound,
-    the plain version and a yardstick of two torch.bmm calls (−(X·dA)·X,
-    which the port never calls)."""
+    (B, n) = (1, 71), (2, 71), (10, 10) and (1, 30) in float64 (path 14's
+    shapes: one cell a fitted parameter, its 71-state core, or on the
+    full-kernel route its 10 particle blocks and c_e block), (1024, 71) in
+    float32, (10240, 10) and (1024, 30) in float32 and float64 (K2's
+    tangent), on equilibrated random matrices and their inverses: in
+    float64 within 1e-10 of the tangent's scale; in float32 its error
+    against float64 at most 4× the plain float32 version's plus 1e-5. Each
+    shape timed over rotating inputs behind the spin, beside its first design's time,
+    its bound, the plain version and a yardstick of two torch.bmm calls
+    (−(X·dA)·X, which the port never calls), with its launch plan (held to
+    the compiled source's) and the host µs a call; then the registers and
+    spills of every instance."""
     import numpy as np
     import torch
     from petlion_tpu_torch.ops import cost, gj_kernel as gk
-    cases = (((1, 71), torch.float64), ((2, 71), torch.float64), ((1024, 71), torch.float32),
+    cases = (((1, 71), torch.float64), ((2, 71), torch.float64), ((10, 10), torch.float64),
+             ((1, 30), torch.float64), ((1024, 71), torch.float32),
              ((10240, 10), torch.float32), ((10240, 10), torch.float64),
              ((1024, 30), torch.float32), ((1024, 30), torch.float64))
     shapes, worst = [], 0.0
@@ -1656,6 +1681,10 @@ def phase_k1t():
             check(err <= 4 * plain_err + 1e-5, f"K1t f32 ({B}, {n}): {err} vs plain {plain_err}")
         worst = max(worst, float((got - gk.gj_tangent_plain(X.to(dtype), dA.to(dtype)))
                                  .abs().max()))
+        plan = gk.gj_tangent_plan(B, n, dtype)
+        compiled = gk.gj_tangent_block(plan, dtype)
+        check(compiled == (plan.smem, plan.threads),
+              f"K1t plan {plan} disagrees with the compiled instance {compiled}")
         size = torch.empty(0, dtype=dtype).element_size()
         rot = max(4, -(-60_000_000 // (2 * B * n * n * size)))
         bufs = [(X.to(dtype), (dA * (1 + i)).to(dtype)) for i in range(min(rot, 64))]
@@ -1665,20 +1694,26 @@ def phase_k1t():
         bound_ms, by = cost.bound(*reversed(cost.gj_tangent(B, n, size)),
                                   fp64=dtype == torch.float64)
         tag = str(dtype)[6:]
-        print(f"K1t {tag} ({B}, {n}): error vs float64 plain / scale {err:.3e}"
+        before = K1T_BEFORE_MS.get((B, n, tag))
+        print(f"K1t {tag} ({B}, {n}) [{plan.regime}: np {plan.np}, panels of {plan.panel} rows, "
+              f"{plan.mb} a block, {plan.blocks} blocks of {plan.threads}, {plan.smem} B]: "
+              f"error vs float64 plain / scale {err:.3e}"
               f"{'' if plain_err is None else f' (plain f32 {plain_err:.3e})'}; kernel "
-              f"{ms:.4f} ms, plain {plain_ms:.4f} ms, two torch.bmm {bmm_ms:.4f} ms, bound "
-              f"{bound_ms:.4f} ms ({by}; {bound_ms / ms:.1%} of it reached); host "
-              f"{host_us:.1f} us per call")
-        shapes.append(dict(shape=[B, n, n], dtype=tag, ms=ms, plain_ms=plain_ms,
-                           bmm_ms=bmm_ms, library_ms=None, bound_ms=bound_ms, bound_by=by))
-    regs = {nq: _ptxas_instance(gk.BUILD_LOGS.get("gj_tangent", ""),
-                                f"gj_tangent_kernelIdLi{nq}E") for nq in (1, 2, 5)}
-    print(f"K1t double instances (NQ: registers, spill bytes): {regs}")
+              f"{ms:.4f} ms (first design: {_before(ms, before)}), two torch.bmm {bmm_ms:.4f} ms "
+              f"({'kernel faster' if ms <= bmm_ms else 'KERNEL SLOWER'}), plain "
+              f"{plain_ms:.4f} ms, bound {bound_ms:.4f} ms ({by}; {bound_ms / ms:.1%} of it "
+              f"reached); host {host_us:.1f} us per call")
+        shapes.append(dict(shape=[B, n, n], dtype=tag, regime=plan.regime, ms=ms,
+                           plain_ms=plain_ms, bmm_ms=bmm_ms, library_ms=None,
+                           bound_ms=bound_ms, bound_by=by, host_us=host_us))
+    slower = [s_["shape"][:2] + [s_["dtype"]] for s_ in shapes if s_["ms"] > s_["bmm_ms"]]
+    print(f"K1t against two torch.bmm: slower at {slower or 'no shape'}")
+    instances = _print_ptxas("gj_tangent")
     first = shapes[0]
     return dict(max_abs_err=worst, **{k: first[k] for k in ("ms", "plain_ms", "library_ms",
                                                             "bound_ms", "bound_by")},
-                bmm_ms=first["bmm_ms"], shape=first["shape"], shapes=shapes)
+                bmm_ms=first["bmm_ms"], shape=first["shape"], shapes=shapes,
+                instances=instances)
 
 
 def phase_k3t(Dp, sizes):
@@ -1688,8 +1723,11 @@ def phase_k3t(Dp, sizes):
     (path 14's shape), 5 and 1024 cells: in float64 every output's tangent
     within 1e-10 of its scale from the plain version's, in float32 as close
     to the float64 tangent as the plain float32 version (4× plus 1e-5). The
-    time at (1, 71) float64 and (1024, 71) float32 and float64, beside the
-    bound, the plain version and two torch.bmm at the core's size."""
+    time at (1, 71) float64 and (1024, 71) float32 and float64, beside its
+    first design's, the bound, the plain version and two torch.bmm at the core's size,
+    with the host µs a call and the shared memory a block (held to the
+    compiled source's) and blocks an SM; the registers and spills of both
+    instances."""
     import numpy as np
     import torch
     from petlion_tpu_torch.ops import cost, dchain as kd
@@ -1722,6 +1760,9 @@ def phase_k3t(Dp, sizes):
     shapes = []
     for B, dtype in ((1, torch.float64), (1024, torch.float64), (1024, torch.float32)):
         size = torch.empty(0, dtype=dtype).element_size()
+        smem = kd.tangent_smem_bytes(n, sizes, dtype)
+        check(kd.dchain_tangent_smem_compiled(n, sizes, dtype) == smem,
+              f"K3t shared memory of the plan ({smem} B) is not the compiled source's")
         reps = -(-B // Dp.shape[0])
         rot = 64 if B == 1 else ROTATING
         bufs = []
@@ -1736,19 +1777,23 @@ def phase_k3t(Dp, sizes):
         flops, n_bytes = cost.dchain_tangent(B, n, sizes, size)
         bound_ms, by = cost.bound(n_bytes, flops, fp64=dtype == torch.float64)
         tag = str(dtype)[6:]
-        print(f"K3t timing ({B}, {n}, {n}) sizes {tuple(sizes)} {tag}, {rot} rotating inputs: "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, two torch.bmm at ({B}, {n}, {n}) "
-              f"{bmm_ms:.4f} ms, no single PyTorch call computes the tangent; bound "
-              f"{bound_ms:.4f} ms ({by}: {n_bytes / 1e6:.3f} MB, "
-              f"{flops / 1e9:.4f} GFLOP; {bound_ms / ms:.1%} of "
-              f"it reached); host {host_us:.1f} us per call")
+        before = K3T_BEFORE_MS.get((B, tag))
+        print(f"K3t timing ({B}, {n}, {n}) sizes {tuple(sizes)} {tag}, {rot} rotating inputs, "
+              f"{smem} B a block, {kd.tangent_blocks_per_sm(n, sizes, dtype)} blocks an SM: "
+              f"kernel {ms:.4f} ms (first design: {_before(ms, before)}), plain {plain_ms:.4f} ms, two "
+              f"torch.bmm at ({B}, {n}, {n}) {bmm_ms:.4f} ms, no single PyTorch call computes "
+              f"the tangent; bound {bound_ms:.4f} ms ({by}: {n_bytes / 1e6:.3f} MB, "
+              f"{flops / 1e9:.4f} GFLOP; {bound_ms / ms:.1%} of it reached); host "
+              f"{host_us:.1f} us per call")
         shapes.append(dict(shape=[B, n, n], dtype=tag, sizes=list(sizes), ms=ms,
                            plain_ms=plain_ms, bmm_ms=bmm_ms, library_ms=None,
-                           bound_ms=bound_ms, bound_by=by))
+                           bound_ms=bound_ms, bound_by=by, host_us=host_us, smem_bytes=smem))
+    instances = _print_ptxas("dchain_tangent")
     first = shapes[0]
     return dict(max_abs_err=worst, **{k: first[k] for k in ("ms", "plain_ms", "library_ms",
                                                             "bound_ms", "bound_by")},
-                bmm_ms=first["bmm_ms"], shape=first["shape"], shapes=shapes)
+                bmm_ms=first["bmm_ms"], shape=first["shape"], shapes=shapes,
+                instances=instances)
 
 
 def _sens_run(p, route=None):

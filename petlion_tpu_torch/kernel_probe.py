@@ -1,9 +1,10 @@
 """Where the kernels spend their time on the card, and what their launch
 choices are worth. Run on a machine with an NVIDIA GPU and nvcc:
 
-    python -m petlion_tpu_torch.kernel_probe [k1k3] [k2] [--k2-baseline FILE]
+    python -m petlion_tpu_torch.kernel_probe [k1k3] [k2] [tangent] [host]
+        [--k2-baseline FILE] [--tangent-baseline DIR]
 
-(both parts by default).
+(k1k3 and k2 by default).
 
 k1k3. 1. variants: copies of ``csrc/gj_inverse.cu`` and ``csrc/dchain.cu``
    with one launch choice changed (registers a thread through the blocks an
@@ -27,6 +28,26 @@ k2. 1. variants: copies of ``csrc/gj_blocks.cu`` with one design choice
    2. phases: the shipped source built with ``-DGJ_BLOCKS_PROBE`` (clock64
    stamps on lane 0 of every warp), printing the mean cycles per warp in
    the load, the elimination and the store.
+
+tangent. The tangent kernels K1ᵗ (``csrc/gj_tangent.cu``) and K3ᵗ
+   (``csrc/dchain_tangent.cu``) as shipped, built with
+   ``-DTANGENT_PROBE_NO_PRODUCTS`` (staging and stores only) and with
+   ``-DTANGENT_PROBE_NO_STAGING`` (products and stores on whatever shared
+   memory holds), and with ``--tangent-baseline`` the two sources of an
+   earlier version (their own C interface: one block a matrix or cell),
+   each held against the plain versions where it computes the function and
+   timed over rotating inputs behind a spin kernel, as ``chip_smoke.py``
+   times them, at the estimation path's shapes and the large ones, in the
+   order baseline, shipped, variants, shipped, baseline; two torch.bmm
+   beside each K1ᵗ shape; ptxas registers and spills of every instance.
+
+host. The host time of one K3ᵗ launch (``dchain.dchain_tangent_cuda``)
+   taken apart: its checks, the allocation of its seven outputs, the host
+   array of pointers, the bare ctypes launch, the launch with its library
+   lookup and count, and the whole wrapper, each called 200 times in a loop
+   behind a spin kernel (so the device never holds the host back), five
+   times over: µs a call, median and range, at (1, 71) float64 and
+   (1024, 71) float64 and float32, levels (20, 20).
 
 The shipped sources are not changed; the copies live under ``build/probe``.
 """
@@ -371,12 +392,235 @@ def probe_k2(baseline=None):
             + f"; sum {a.sum(1).mean():.0f}; max sum {a.sum(1).max():.0f}")
 
 
+TANGENT_K1_SHAPES = (((1, 71), torch.float64), ((2, 71), torch.float64),
+                     ((10, 10), torch.float64), ((1, 30), torch.float64),
+                     ((20, 10), torch.float64), ((2, 30), torch.float64),
+                     ((1024, 71), torch.float32), ((1024, 30), torch.float32),
+                     ((1024, 30), torch.float64), ((10240, 10), torch.float32),
+                     ((10240, 10), torch.float64))
+TANGENT_K3_SHAPES = ((1, torch.float64), (2, torch.float64), (1024, torch.float64),
+                     (1024, torch.float32))
+TANGENT_VARIANTS = {"no products": ("-DTANGENT_PROBE_NO_PRODUCTS",),
+                    "no staging": ("-DTANGENT_PROBE_NO_STAGING",),
+                    "phases": ("-DTANGENT_PROBE_CLOCKS",),
+                    "phases no staging": ("-DTANGENT_PROBE_CLOCKS", "-DTANGENT_PROBE_NO_STAGING"),
+                    "phases no products": ("-DTANGENT_PROBE_CLOCKS", "-DTANGENT_PROBE_NO_PRODUCTS")}
+
+
+def _phases(lib, call, blocks):
+    """Mean cycles between the phase stamps of the first `blocks` blocks
+    (thread 0 of each) over one launch: 'a-b: cycles' for each stamp pair."""
+    call(0)
+    torch.cuda.synchronize()
+    h = np.zeros((2048, 16), dtype=np.int64)
+    if lib.tangent_probe_clocks(ctypes.c_void_p(h.ctypes.data)) != 0:
+        raise RuntimeError("copying the phase stamps failed")
+    a = h[:min(blocks, 2048)]
+    last = int((a != 0).sum(axis=1).max())
+    d = np.diff(a[:, :last], axis=1).mean(axis=0)
+    return ", ".join(f"{i}-{i + 1}: {x:.0f}" for i, x in enumerate(d)) + f"; sum {d.sum():.0f}"
+
+
+def _build_tangent(jobs):
+    """Build {key: (source dir, name, nvcc flags)}, each with the headers of
+    its directory, in parallel: {key: (library or None, nvcc output)}."""
+    procs = {}
+    for key, (src_dir, name, flags) in jobs.items():
+        d = OUT / re.sub(r"[^A-Za-z0-9]+", "_", key)
+        d.mkdir(parents=True, exist_ok=True)
+        for f in Path(src_dir).glob("*.cuh"):
+            (d / f.name).write_text(f.read_text())
+        (d / f"{name}.cu").write_text((Path(src_dir) / f"{name}.cu").read_text())
+        procs[key] = (d / "lib.so", subprocess.Popen(
+            [gk._nvcc(), *gk.NVCC_FLAGS, *flags, "-o", str(d / "lib.so"), str(d / f"{name}.cu")],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+    built = {}
+    for key, (so, p) in procs.items():
+        log = p.communicate()[0]
+        built[key] = (so if p.returncode == 0 else None, log)
+    return built
+
+
+def _k1t_caller(lib, baseline, bufs, outs, B, n, dtype):
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    fn = lib.gj_tangent_f64 if dtype == torch.float64 else lib.gj_tangent_f32
+    P, I = ctypes.c_void_p, ctypes.c_int
+    if baseline:
+        fn.argtypes = [P, P, P, I, I, P]
+        return lambda i: fn(bufs[i][0].data_ptr(), bufs[i][1].data_ptr(), outs[i].data_ptr(),
+                            B, n, stream)
+    plan = gk.gj_tangent_plan(B, n, dtype)
+    fn.argtypes = [P, P, P, I, I, I, I, I, P]
+    return lambda i: fn(bufs[i][0].data_ptr(), bufs[i][1].data_ptr(), outs[i].data_ptr(), B, n,
+                        plan.np, plan.panel, plan.mb, stream)
+
+
+def _k3t_caller(lib, baseline, bufs, touts, sizes, B, n, dtype):
+    stream = ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
+    fn = lib.dchain_tangent_f64 if dtype == torch.float64 else lib.dchain_tangent_f32
+    P, I, PP = ctypes.c_void_p, ctypes.c_int, ctypes.POINTER(ctypes.c_void_p)
+    csz = (ctypes.c_int * len(sizes))(*sizes)
+    if baseline:
+        fn.argtypes = [P, P, PP, PP, ctypes.POINTER(ctypes.c_int), I, I, I, P]
+        ins = [(ctypes.c_void_p * len(o))(*(t.data_ptr() for t in o)) for _, _, o in bufs]
+        out = [(ctypes.c_void_p * len(t))(*(x.data_ptr() for x in t)) for t in touts]
+        return lambda i: fn(bufs[i][0].data_ptr(), bufs[i][1].data_ptr(), ins[i], out[i], csz,
+                            len(sizes), B, n, stream)
+    fn.argtypes = [P, P, PP, ctypes.POINTER(ctypes.c_int), I, I, I, P]
+    ptrs = [(ctypes.c_void_p * (2 * len(o)))(*(x.data_ptr() for x in (*o, *t)))
+            for (_, _, o), t in zip(bufs, touts)]
+    return lambda i: fn(bufs[i][0].data_ptr(), bufs[i][1].data_ptr(), ptrs[i], csz, len(sizes),
+                        B, n, stream)
+
+
+def probe_tangent(baseline=None):
+    jobs = {}
+    if baseline:
+        for name in ("gj_tangent", "dchain_tangent"):
+            jobs[f"{name} baseline"] = (baseline, name, ())
+    for name in ("gj_tangent", "dchain_tangent"):
+        jobs[f"{name} shipped"] = (gk.CSRC, name, ())
+        for v, flags in TANGENT_VARIANTS.items():
+            jobs[f"{name} {v}"] = (gk.CSRC, name, flags)
+    t0 = time.time()
+    built = _build_tangent(jobs)
+    print(f"built {len(built)} tangent libraries in {time.time() - t0:.1f} s")
+    for key, (so, log) in built.items():
+        if so is None:
+            print(f"{key}: BUILD FAILED\n{log}")
+            continue
+        if key.endswith("shipped") or key.endswith("baseline"):
+            for inst, regs, st, ld, frame in gk.ptxas_report(log):
+                print(f"  ptxas {key} {inst}: {regs} registers, spill {st}/{ld} B, "
+                      f"stack frame {frame} B")
+    order = [k for k in jobs if k.endswith("baseline")]
+    order = order + [k for k in jobs if k.endswith("shipped")] + \
+        [k for k in jobs if not k.endswith(("shipped", "baseline"))] + \
+        [k for k in jobs if k.endswith("shipped")] + order[::-1]
+    libs = {k: ctypes.CDLL(str(so)) for k, (so, _) in built.items() if so is not None}
+
+    rng = np.random.default_rng(0)
+    for (B, n), dtype in TANGENT_K1_SHAPES:
+        size = torch.empty(0, dtype=dtype).element_size()
+        A = torch.as_tensor(rng.standard_normal((B, n, n)) + 20.0 * np.eye(n), device="cuda")
+        X = torch.linalg.inv(_equilibrate(A)[0]).contiguous()
+        rot = min(64, max(4, -(-60_000_000 // (2 * B * n * n * size))))
+        bufs = [(X.to(dtype), torch.as_tensor(rng.standard_normal((B, n, n)), device="cuda")
+                 .to(dtype)) for _ in range(rot)]
+        outs = [torch.empty_like(b[0]) for b in bufs]
+        ref = gk.gj_tangent_plain(bufs[0][0].double(), bufs[0][1].double())
+        cells = []
+        for key in order:
+            if not key.startswith("gj_tangent") or key not in libs or "phases" in key:
+                continue
+            call = _k1t_caller(libs[key], key.endswith("baseline"), bufs, outs, B, n, dtype)
+            if call(0) != 0:
+                cells.append(f"{key}: launch failed")
+                continue
+            torch.cuda.synchronize()
+            err = float((outs[0].double() - ref).abs().max() / ref.abs().max())
+            cells.append(f"{key.split(' ', 1)[1]} {_spin_ms(call, rot):.4f} ms (err {err:.1e})")
+        bmm = _spin_ms(lambda i: torch.bmm(torch.bmm(bufs[i][0], bufs[i][1]), bufs[i][0]), rot)
+        plan = gk.gj_tangent_plan(B, n, dtype)
+        for key in [k for k in libs if k.startswith("gj_tangent phases")]:
+            lib = libs[key]
+            cells.append(key.split(" ", 1)[1] + " (cycles, thread 0): " + _phases(
+                lib, _k1t_caller(lib, False, bufs, outs, B, n, dtype), plan.blocks))
+        print(f"K1t ({B}, {n}) {str(dtype)[6:]} [{plan.regime}: np {plan.np}, pr {plan.panel}, "
+              f"mb {plan.mb}, {plan.blocks} blocks of {plan.threads}]: " + "; ".join(cells)
+              + f"; two torch.bmm {bmm:.4f} ms")
+
+    _, Dp, sizes, _ = newton_matrices()
+    sizes = tuple(sizes)
+    n = Dp.shape[-1]
+    for B, dtype in TANGENT_K3_SHAPES:
+        reps = -(-B // Dp.shape[0])
+        rot = 64 if B <= 2 else 4
+        bufs = []
+        for i in range(rot):
+            D = Dp.to("cuda", dtype).repeat(reps, 1, 1)[:B].contiguous()
+            dD = (D * torch.as_tensor(rng.standard_normal(D.shape), device="cuda", dtype=dtype))
+            bufs.append((D, dD.contiguous(), kd.dchain_cuda(D, sizes)))
+        touts = [[torch.empty_like(o) for o in b[2]] for b in bufs]
+        ref = kd.dchain_tangent_plain(bufs[0][0].double(), bufs[0][1].double(),
+                                      [o.double() for o in bufs[0][2]], sizes)
+        cells = []
+        for key in order:
+            if not key.startswith("dchain_tangent") or key not in libs or "phases" in key:
+                continue
+            call = _k3t_caller(libs[key], key.endswith("baseline"), bufs, touts, sizes, B, n,
+                               dtype)
+            if call(0) != 0:
+                cells.append(f"{key}: launch failed")
+                continue
+            torch.cuda.synchronize()
+            err = max(float((t.double() - r).abs().max() / r.abs().max())
+                      for t, r in zip(touts[0], ref))
+            cells.append(f"{key.split(' ', 1)[1]} {_spin_ms(call, rot):.4f} ms (err {err:.1e})")
+        for key in [k for k in libs if k.startswith("dchain_tangent phases")]:
+            lib = libs[key]
+            cells.append(key.split(" ", 1)[1] + " (cycles, thread 0): " + _phases(
+                lib, _k3t_caller(lib, False, bufs, touts, sizes, B, n, dtype), B))
+        print(f"K3t ({B}, {n}) sizes {sizes} {str(dtype)[6:]} "
+              f"[{kd.tangent_smem_bytes(n, sizes, dtype)} B a block, "
+              f"{kd.tangent_blocks_per_sm(n, sizes, dtype)} an SM]: " + "; ".join(cells))
+
+
+def _host_us(call, reps=200, rounds=5):
+    """µs of host time a call of `call()`, over `rounds` loops of `reps`
+    calls queued behind a spin kernel: (median, min, max) of the rounds."""
+    call()
+    torch.cuda.synchronize()
+    per = []
+    for _ in range(rounds):
+        torch.cuda._sleep(SPIN_CYCLES)
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            call()
+        per.append((time.perf_counter() - t0) * 1e6 / reps)
+        torch.cuda.synchronize()
+    return float(np.median(per)), min(per), max(per)
+
+
+def probe_host():
+    gk.compile_all(("dchain", "dchain_tangent"))
+    _, Dp, sizes, _ = newton_matrices()
+    sizes = tuple(sizes)
+    for B, dtype in ((1, torch.float64), (1024, torch.float64), (1024, torch.float32)):
+        D = Dp.to("cuda", dtype).repeat(-(-B // Dp.shape[0]), 1, 1)[:B].contiguous()
+        dD = (D * 0.5).contiguous()
+        outs = kd.dchain_cuda(D, sizes)
+        _, shapes = kd.tangent_checked(D, dD, outs, sizes)
+        touts = tuple(D.new_empty(s) for s in shapes)
+        ptrs = kd.tangent_pointers(outs, touts)
+        lib = gk.library("dchain_tangent", kd._T_LAUNCHERS)
+        fn = lib.dchain_tangent_f64 if dtype == torch.float64 else lib.dchain_tangent_f32
+        csz, stream = kd._c_sizes(sizes), gk._raw_stream(D.device)
+        parts = {
+            "checks": lambda: kd.tangent_checked(D, dD, outs, sizes),
+            "7 allocations": lambda: tuple(D.new_empty(s) for s in shapes),
+            "pointer array": lambda: kd.tangent_pointers(outs, touts),
+            "bare ctypes launch": lambda: fn(D.data_ptr(), dD.data_ptr(), ptrs, csz, len(sizes),
+                                             B, D.shape[1], stream),
+            "launch with lookup and count": lambda: kd.tangent_launch(D, dD, ptrs, sizes),
+            "whole wrapper": lambda: kd.dchain_tangent_cuda(D, dD, outs, sizes),
+            "one PyTorch x.add_(1) (floor)": lambda: touts[0].add_(1),
+        }
+        print(f"K3t host µs a call ({B}, {D.shape[1]}) {str(dtype)[6:]}, median [min, max] of 5 "
+              "loops of 200: " + "; ".join(
+                  "{}: {:.1f} [{:.1f}, {:.1f}]".format(k, *_host_us(f)) for k, f in parts.items()))
+
+
 def main(argv):
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA GPU")
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                           capture_output=True, text=True, timeout=60).stdout.strip()
     print(card)
+    tangent_baseline = None
+    if "--tangent-baseline" in argv:
+        tangent_baseline = argv[argv.index("--tangent-baseline") + 1]
+        argv = [a for a in argv if a not in ("--tangent-baseline", tangent_baseline)]
     baseline = None
     if "--k2-baseline" in argv:
         baseline = argv[argv.index("--k2-baseline") + 1]
@@ -386,6 +630,10 @@ def main(argv):
         probe_k1_k3()
     if "k2" in parts:
         probe_k2(baseline)
+    if "tangent" in parts:
+        probe_tangent(tangent_baseline)
+    if "host" in parts:
+        probe_host()
 
 
 if __name__ == "__main__":

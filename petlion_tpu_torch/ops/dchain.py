@@ -27,19 +27,22 @@ an ``autograd.Function`` whose forward is the same dispatch and whose
 block a cell) for a CUDA tensor, ``dchain_tangent_plain`` for a CPU tensor.
 K3ᵗ replaces no TPU kernel of its own: it is the port's counterpart of
 Pallas's JVP of ``_dchain_kernel``, which the JAX package's ``jax.jacfwd``
-runs on a TPU.
+runs on a TPU. ``dchain_tangent_mirror`` is K3ᵗ in its order of operations
+(its cores updated in place), and ``tangent_smem_bytes`` its shared memory.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from . import cost
 from .dual import has_tangent, primal, refuse
-from .gj_kernel import (MAX_SMEM_BYTES, check_launch, gj_inverse,
-                        gj_inverse_inplace, gj_tangent_plain, library)
+from .gj_kernel import (MAX_SMEM_BYTES, _raw_stream, _sum_in_steps, check_launch,
+                        gj_inverse, gj_inverse_inplace, gj_tangent_plain, library,
+                        on_device)
 
 MAX_LEVELS = 4      # csrc/dchain.cu kMaxLevels
 # largest inverse of the chain the kernel takes (csrc/dchain.cu max_m)
@@ -184,9 +187,12 @@ def dchain_hot(D, sizes):
 # ---------------------------------------------------------------------------
 
 _T_LAUNCHERS = {f"dchain_tangent_{t}": [_P, _P, ctypes.POINTER(ctypes.c_void_p),
-                                        ctypes.POINTER(ctypes.c_void_p),
                                         ctypes.POINTER(ctypes.c_int), _I, _I, _I, _P]
                 for t in ("f32", "f64")}
+TANGENT_THREADS = 256       # csrc/dchain_tangent.cu NT
+SM_SMEM_BYTES = 233472      # shared memory of an H100 SM
+BLOCK_RESERVED_BYTES = 1024  # reserved by the system for each resident block
+MAX_THREADS_PER_SM = 2048
 
 
 def dchain_tangent_plain(D, dD, outs, sizes):
@@ -210,57 +216,148 @@ def dchain_tangent_plain(D, dD, outs, sizes):
     return tuple(touts)
 
 
+def dchain_tangent_mirror(D, dD, outs, sizes):
+    """K3ᵗ in its order of operations (csrc/dchain_tangent.cu): the primal
+    and tangent cores held whole and updated in place a level at a time,
+    T1 = invA·dA written over the primal core's A block and d invA over the
+    tangent core's, the two r×r updates of a level in one pass, every
+    product summing its depth eight at a time (the float64 kernel's DMMA
+    steps; the float32 kernel sums one term at a time), d AinvB and the
+    tangent's update each one running sum over both of their products."""
+    Mp, dM = D.clone(), dD.clone()
+    touts, o = [], 0
+    for L, nk in enumerate(sizes):
+        invA, AinvB = outs[3 * L], outs[3 * L + 1]
+        e = o + nk
+        Mp[:, o:e, o:e] = _sum_in_steps(invA, dM[:, o:e, o:e])                  # T1
+        dM[:, o:e, o:e] = -_sum_in_steps(Mp[:, o:e, o:e], invA)                 # d invA
+        dAB = _sum_in_steps(invA, dM[:, o:e, e:],
+                            _sum_in_steps(dM[:, o:e, o:e], Mp[:, o:e, e:]))
+        touts += [dM[:, o:e, o:e].clone(), dAB, dM[:, e:, o:e].clone()]
+        upd = _sum_in_steps(Mp[:, e:, o:e], dAB, _sum_in_steps(dM[:, e:, o:e], AinvB))
+        if L + 1 < len(sizes):
+            Mp[:, e:, e:] = Mp[:, e:, e:] - _sum_in_steps(Mp[:, e:, o:e], AinvB)
+        dM[:, e:, e:] = dM[:, e:, e:] - upd
+        o = e
+    T1 = _sum_in_steps(outs[-1], dM[:, o:, o:])
+    touts.append(-_sum_in_steps(T1, outs[-1]))
+    return tuple(touts)
+
+
+def _pad_ld(cols: int) -> int:
+    """Row stride of a shared operand (csrc/tangent_common.cuh pad_ld): 4 mod
+    8 elements."""
+    return cols + (4 - cols) % 8
+
+
 def tangent_smem_bytes(n: int, sizes, dtype: torch.dtype) -> int:
-    """Shared memory of one K3ᵗ block (csrc/dchain_tangent.cu launch): the
-    primal and tangent cores, three square and two panel buffers."""
-    m, s1, s2 = n, 1, 1
+    """Shared memory of one K3ᵗ block (csrc/dchain_tangent.cu plan_layout):
+    the primal and tangent cores (n rows of the padded stride), the largest
+    invA or core inverse X, and the largest AinvB twice (AinvB, d AinvB)."""
+    s = dtype.itemsize
+    m, s_inv, s_ab = n, 1, 1
     for nk in sizes:
-        s1, s2 = max(s1, nk * nk), max(s2, nk * (m - nk))
-        m -= nk
-    s1 = max(s1, m * m)
-    return (2 * n * n + 3 * s1 + 2 * s2) * dtype.itemsize
+        r = m - nk
+        s_inv, s_ab = max(s_inv, nk * _pad_ld(nk)), max(s_ab, nk * _pad_ld(r))
+        m = r
+    s_inv = max(s_inv, m * _pad_ld(m))
+    return (2 * n * _pad_ld(n) + s_inv + 2 * s_ab) * s
 
 
-def dchain_tangent_cuda(D, dD, outs, sizes):
-    """Launch K3ᵗ on contiguous CUDA (B, n, n) f32/f64 tensors: the permuted
-    core D, its tangent dD and K3's outputs `outs`."""
+def tangent_blocks_per_sm(n: int, sizes, dtype: torch.dtype) -> int:
+    """K3ᵗ blocks that fit one SM by shared memory and threads (its launch
+    bounds ask the compiler for registers enough for two)."""
+    by_smem = SM_SMEM_BYTES // (tangent_smem_bytes(n, sizes, dtype) + BLOCK_RESERVED_BYTES)
+    return min(by_smem, MAX_THREADS_PER_SM // TANGENT_THREADS)
+
+
+_C_SIZES = {}       # level sizes -> their ctypes array
+
+
+def _c_sizes(sizes):
+    arr = _C_SIZES.get(sizes)
+    if arr is None:
+        arr = _C_SIZES[sizes] = (ctypes.c_int * max(len(sizes), 1))(*sizes)
+    return arr
+
+
+def tangent_checked(D, dD, outs, sizes):
+    """The checks of ``dchain_tangent_cuda`` on its arguments (it raises on
+    any that K3ᵗ cannot take): (level sizes, the tangent outputs' shapes)."""
     refuse("dchain_tangent_cuda", D, dD, *outs)
     sizes = tuple(int(s) for s in sizes)
-    if D.device.type != "cuda" or dD.device != D.device:
+    dev, dtype = D.device, D.dtype
+    if dev.type != "cuda" or dD.device != dev:
         raise ValueError(f"dchain_tangent_cuda needs CUDA tensors on one device, got "
-                         f"{D.device}, {dD.device}")
-    if D.dtype not in (torch.float32, torch.float64) or dD.dtype != D.dtype:
-        raise TypeError(f"dchain_tangent_cuda takes float32/float64, got {D.dtype}, "
+                         f"{dev}, {dD.device}")
+    if dtype not in (torch.float32, torch.float64) or dD.dtype != dtype:
+        raise TypeError(f"dchain_tangent_cuda takes float32/float64, got {dtype}, "
                         f"{dD.dtype}")
     if D.ndim != 3 or D.shape[1] != D.shape[2] or dD.shape != D.shape:
         raise ValueError(f"dchain_tangent_cuda takes two (B, n, n), got "
                          f"{tuple(D.shape)}, {tuple(dD.shape)}")
-    B, n = D.shape[0], D.shape[1]
-    if len(sizes) > MAX_LEVELS or any(s < 1 for s in sizes) or sum(sizes) >= n:
-        raise ValueError(f"dchain_tangent_cuda: level sizes {sizes} do not fit n={n}")
-    shapes = out_shapes(n, sizes)
+    shapes = _tangent_shapes(D.shape[0], D.shape[1], sizes, dtype)
     if len(outs) != len(shapes) or any(
-            tuple(o.shape) != (B,) + s or o.dtype != D.dtype or o.device != D.device
+            o.shape != s or o.dtype != dtype or o.device != dev or not o.is_contiguous()
             for o, s in zip(outs, shapes)):
-        raise ValueError("dchain_tangent_cuda: the chain's outputs do not match the core")
-    if not all(x.is_contiguous() for x in (D, dD, *outs)):
+        raise ValueError("dchain_tangent_cuda: the chain's outputs do not match the core "
+                         "(contiguous, its shapes, dtype and device)")
+    if not (D.is_contiguous() and dD.is_contiguous()):
         raise ValueError("dchain_tangent_cuda takes contiguous tensors")
-    if tangent_smem_bytes(n, sizes, D.dtype) > MAX_SMEM_BYTES:
-        raise ValueError(f"dchain_tangent_cuda: n={n} in {D.dtype} needs "
-                         f"{tangent_smem_bytes(n, sizes, D.dtype)} B of shared memory")
-    touts = tuple(torch.empty((B,) + s, dtype=D.dtype, device=D.device) for s in shapes)
-    if B == 0:
-        return touts
+    return sizes, shapes
+
+
+def tangent_pointers(outs, touts):
+    """The launch's host array of device pointers: K3's outputs, then their
+    tangents."""
+    return (ctypes.c_void_p * (2 * len(outs)))(*[x.data_ptr() for x in (*outs, *touts)])
+
+
+def tangent_launch(D, dD, ptrs, sizes):
+    """Launch K3ᵗ on checked arguments, the outputs' pointers in `ptrs`."""
     lib = library("dchain_tangent", _T_LAUNCHERS)
     fn = lib.dchain_tangent_f32 if D.dtype == torch.float32 else lib.dchain_tangent_f64
-    ins = (ctypes.c_void_p * len(outs))(*(o.data_ptr() for o in outs))
-    ptrs = (ctypes.c_void_p * len(touts))(*(o.data_ptr() for o in touts))
-    csizes = (ctypes.c_int * max(len(sizes), 1))(*sizes)
-    with torch.cuda.device(D.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(D.data_ptr(), dD.data_ptr(), ins, ptrs, csizes, len(sizes), B, n, stream)
-    check_launch(lib, "dchain_tangent", rc, n)
+    with on_device(D.device):
+        rc = fn(D.data_ptr(), dD.data_ptr(), ptrs, _c_sizes(sizes), len(sizes), D.shape[0],
+                D.shape[1], _raw_stream(D.device))
+    check_launch(lib, "dchain_tangent", rc, D.shape[1])
+
+
+def dchain_tangent_cuda(D, dD, outs, sizes):
+    """Launch K3ᵗ on contiguous CUDA (B, n, n) f32/f64 tensors: the permuted
+    core D, its tangent dD and K3's outputs `outs`. Its host parts (checks,
+    the seven allocations, the pointer array, the launch) are the functions
+    that ``kernel_probe host`` times one at a time."""
+    sizes, shapes = tangent_checked(D, dD, outs, sizes)
+    touts = tuple(D.new_empty(s) for s in shapes)
+    if D.shape[0] == 0:
+        return touts
+    tangent_launch(D, dD, tangent_pointers(outs, touts), sizes)
     return touts
+
+
+@functools.lru_cache(maxsize=None)
+def _tangent_shapes(B: int, n: int, sizes: tuple, dtype: torch.dtype) -> tuple:
+    """The tangent outputs' shapes for B cores of size n, after the checks
+    that K3ᵗ takes the level sizes (ValueError otherwise)."""
+    if len(sizes) > MAX_LEVELS or any(s < 1 for s in sizes) or sum(sizes) >= n:
+        raise ValueError(f"dchain_tangent_cuda: level sizes {sizes} do not fit n={n}")
+    if tangent_smem_bytes(n, sizes, dtype) > MAX_SMEM_BYTES:
+        raise ValueError(f"dchain_tangent_cuda: n={n} in {dtype} needs "
+                         f"{tangent_smem_bytes(n, sizes, dtype)} B of shared memory")
+    return tuple((B,) + s for s in out_shapes(n, sizes))
+
+
+def dchain_tangent_smem_compiled(n: int, sizes, dtype: torch.dtype) -> int:
+    """K3ᵗ's shared memory as the compiled source computes it (chip_smoke.py
+    and the card tests hold ``tangent_smem_bytes`` to it)."""
+    lib = library("dchain_tangent", _T_LAUNCHERS)
+    fn = lib.dchain_tangent_smem
+    if fn.restype is not ctypes.c_longlong:
+        fn.argtypes = [_I, ctypes.POINTER(ctypes.c_int), _I, _I]
+        fn.restype = ctypes.c_longlong
+    sizes = tuple(int(s) for s in sizes)
+    return fn(int(dtype == torch.float64), _c_sizes(sizes), len(sizes), n)
 
 
 @cost.counted("dchain_tangent")

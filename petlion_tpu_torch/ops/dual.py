@@ -46,6 +46,8 @@ def has_tangent(x) -> bool:
 def refuse(name: str, *xs):
     """Raise if any of `xs` carries a forward-mode tangent: a kernel launched
     through ctypes would drop it."""
+    if fwAD._current_level < 0:     # no dual level is open: nothing carries one
+        return
     if any(has_tangent(x) for x in xs):
         raise ValueError(f"{name}: the input carries a forward-mode tangent, "
                          "which the kernel would drop; dispatch through the "

@@ -28,14 +28,20 @@ whose ``jvp`` is dX = −X·dA·X, by ``csrc/gj_tangent.cu`` (K1ᵗ) for a CUDA
 tensor and ``gj_tangent_plain`` for a CPU tensor. K1ᵗ replaces no TPU kernel
 of its own: it is the port's counterpart of Pallas's JVP of ``_gj_kernel``,
 which the JAX package's ``jax.jacfwd`` runs on a TPU. K2's tangent
-(``ops/gj_blocks.py``) is the same kernel.
+(``ops/gj_blocks.py``) is the same kernel. ``gj_tangent_plan`` picks K1ᵗ's
+launch from (B, n, dtype) in pure Python, and ``gj_tangent_mirror`` is K1ᵗ
+in its order of operations, which the tests hold against the plain version.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import dataclasses
+import functools
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -168,6 +174,26 @@ def _best_bs(n: int) -> int:
 # ---------------------------------------------------------------------------
 
 BUILD_LOGS: dict = {}     # source name -> nvcc output of its last build
+
+
+def ptxas_report(log: str) -> list:
+    """[(kernel instance (mangled), registers, spill store bytes, spill load
+    bytes, stack frame bytes)] of every entry function in nvcc's
+    ``-Xptxas -v`` output (a build log of ``BUILD_LOGS``), in its order."""
+    rows, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for) '?([\w$]+)", line)
+        if m:
+            cur = m.group(1)
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and cur:
+            rows.setdefault(cur, [None, int(m.group(2)), int(m.group(3)), int(m.group(1))])
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur in rows:
+            rows[cur][0] = int(m.group(1))
+    return [(name, *row) for name, row in rows.items()]
 _libs: dict = {}
 _BUILD_LOCK = threading.Lock()    # one build and load of a library at a time
 
@@ -311,13 +337,149 @@ def gj_inverse_hot(A):
 # the tangent: K1ᵗ and its plain version
 # ---------------------------------------------------------------------------
 
-_GJT_LAUNCHERS = {f"gj_tangent_{t}": [_P, _P, _P, _I, _I, _P] for t in ("f32", "f64")}
+_GJT_LAUNCHERS = {f"gj_tangent_{t}": [_P, _P, _P, _I, _I, _I, _I, _I, _P]
+                  for t in ("f32", "f64")}
+
+# K1ᵗ's launch plan (csrc/gj_tangent.cu). A matrix is padded to the first of
+# TANGENT_NP that holds it (zeros staged at no cost in device memory).
+SM_COUNT = 132              # SMs of an H100 SXM: the small-batch threshold
+TANGENT_PANEL = 16          # rows of a panel in the small-batch regime
+TANGENT_SMALL_THREADS = 512  # threads of its blocks (csrc/gj_tangent.cu kSmallThreads)
+TANGENT_NP = {torch.float32: (16, 32, 48, 72, 96, 128, 176),
+              torch.float64: (16, 32, 48, 72, 96, 128)}
+# large-batch regime: (rows of a panel, matrices a block) at each padded size;
+# a panel is the whole matrix where two of them fit a block's 227 KB
+_TANGENT_LARGE = {
+    torch.float32: {16: (16, 16), 32: (32, 4), 48: (48, 2), 72: (72, 1), 96: (96, 1),
+                    128: (128, 1), 176: (88, 1)},
+    torch.float64: {16: (16, 4), 32: (32, 2), 48: (48, 1), 72: (72, 1), 96: (96, 1),
+                    128: (64, 1)},
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class TangentPlan:
+    """A K1ᵗ launch: regime ("small": a block a panel of 16 rows, for batches
+    that leave SMs idle; "large": a block a matrix, or MB of them), padded
+    size np, rows of a panel, matrices a block mb, panels a matrix, blocks,
+    threads a block, dynamic shared memory a block (bytes) and whether X
+    gets a third buffer (staged beside dA) or is staged over dA after the
+    first product; rows: the rows of a panel's buffers (float64 tiles take
+    16 rows, zeros past n)."""
+    regime: str
+    np: int
+    panel: int
+    rows: int
+    mb: int
+    panels: int
+    blocks: int
+    threads: int
+    smem: int
+    three: bool
+
+
+def _col_tiles(np_: int) -> int:
+    """Largest divisor of np / 8 that is at most 4: a float64 warp's tiles."""
+    c = np_ // 8
+    return next(d for d in (4, 3, 2, 1) if c % d == 0)
+
+
+@functools.lru_cache(maxsize=None)
+def gj_tangent_plan(B: int, n: int, dtype: torch.dtype) -> TangentPlan:
+    """K1ᵗ's launch for B matrices of size n: the small-batch regime where
+    B·⌈n/16⌉ ≤ SM_COUNT (every panel a block, one wave), the large-batch
+    regime above it. Pure Python: the wrapper passes (np, panel, mb) to the
+    kernel, which has one instance for each pair this returns."""
+    if not 1 <= n <= MAX_N[dtype]:
+        raise ValueError(f"gj_tangent takes 1 <= n <= {MAX_N[dtype]} in {dtype}, got {n}")
+    np_ = next(p for p in TANGENT_NP[dtype] if p >= n)
+    small = B * -(-n // TANGENT_PANEL) <= SM_COUNT
+    panel, mb = (min(TANGENT_PANEL, np_), 1) if small else _TANGENT_LARGE[dtype][np_]
+    size = dtype.itemsize
+    ld = np_ + 4
+    rp = -(-panel // 16) * 16 if dtype == torch.float64 else panel   # 16-row MMA tiles
+    three = panel != np_ and (rp + 2 * np_) * ld * size * mb <= MAX_SMEM_BYTES
+    smem = (rp + max(np_, rp) + (np_ if three else 0)) * ld * mb * size
+    if small and panel == TANGENT_PANEL:
+        threads = TANGENT_SMALL_THREADS
+    elif dtype == torch.float64:
+        threads = 32 * min(8, mb * (rp // 16) * (np_ // 8 // _col_tiles(np_)))
+    else:
+        # float32 thread tiles of 4 rows x 8 columns (csrc/gj_tangent.cu kRowsF32)
+        threads = -(-(mb * (panel // 4) * (np_ // 8)) // 32) * 32
+    panels = -(-n // panel)
+    return TangentPlan("small" if small else "large", np_, panel, rp, mb, panels,
+                       -(-B // mb) * panels, threads, smem, three)
 
 
 def gj_tangent_plain(X, dA):
     """dX = −(X·dA)·X, the tangent of X = A⁻¹ along dA, (..., n, n) (the
     kernel's association)."""
     return -torch.matmul(torch.matmul(X, dA), X)
+
+
+def _sum_in_steps(A, B, acc=None, step=8):
+    """acc + A·B with the depth taken `step` at a time, each step's sum added
+    to the running sum (a DMMA m16n8k8 step); acc None: zero."""
+    if acc is None:
+        acc = torch.zeros(A.shape[:-1] + B.shape[-1:], dtype=A.dtype, device=A.device)
+    for k in range(0, A.shape[-1], step):
+        acc = acc + torch.matmul(A[..., k:k + step], B[..., k:k + step, :])
+    return acc
+
+
+def gj_tangent_mirror(X, dA):
+    """K1ᵗ in its order of operations (csrc/gj_tangent.cu), (B, n, n): X and
+    dA padded with zeros to the plan's np, then for each panel of the plan's rows
+    V = X[panel, :]·dA and dX[panel, :] = −V·X, each product summing the
+    depth eight at a time as the float64 kernel's DMMA does (the float32
+    kernel sums it one term at a time in an fma chain)."""
+    B, n = X.shape[0], X.shape[-1]
+    plan = gj_tangent_plan(B, n, X.dtype)
+    Xp = X.new_zeros((B, plan.np, plan.np))
+    dAp = X.new_zeros((B, plan.np, plan.np))
+    Xp[:, :n, :n] = X
+    dAp[:, :n, :n] = dA
+    out = torch.empty_like(X)
+    for r0 in range(0, n, plan.panel):
+        V = _sum_in_steps(Xp[:, r0:r0 + plan.panel], dAp)
+        out[:, r0:r0 + plan.panel] = -_sum_in_steps(V, Xp)[:, :n - r0, :n]
+    return out
+
+
+def _gjt_library():
+    lib = library("gj_tangent", _GJT_LAUNCHERS)
+    fn = lib.gj_tangent_block
+    if fn.restype is not ctypes.c_longlong:
+        fn.argtypes, fn.restype = [_I] * 5, ctypes.c_longlong
+    return lib
+
+
+def gj_tangent_block(plan: TangentPlan, dtype: torch.dtype):
+    """(shared memory bytes, threads) of the kernel instance the plan names,
+    as the compiled source computes them (None where it has no such
+    instance): chip_smoke.py and the card tests hold the plan to them."""
+    fn = _gjt_library().gj_tangent_block
+    f64 = int(dtype == torch.float64)
+    smem = fn(f64, plan.np, plan.panel, plan.mb, 0)
+    return None if smem < 0 else (smem, fn(f64, plan.np, plan.panel, plan.mb, 1))
+
+
+def _raw_stream(device) -> int:
+    """The current CUDA stream of `device` as an int, without building a
+    Stream object."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+_SAME_DEVICE = contextlib.nullcontext()
+
+
+def on_device(device):
+    """A context that makes `device` the current CUDA device (a launcher
+    launches on the current one); nothing to switch where it already is."""
+    if device.index == torch.cuda.current_device():
+        return _SAME_DEVICE
+    return torch.cuda.device(device)
 
 
 def gj_tangent_cuda(X, dA):
@@ -341,11 +503,12 @@ def gj_tangent_cuda(X, dA):
     out = torch.empty_like(X)
     if B == 0 or n == 0:
         return out
-    lib = library("gj_tangent", _GJT_LAUNCHERS)
+    plan = gj_tangent_plan(B, n, X.dtype)
+    lib = _gjt_library()
     fn = lib.gj_tangent_f32 if X.dtype == torch.float32 else lib.gj_tangent_f64
-    with torch.cuda.device(X.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        rc = fn(X.data_ptr(), dA.data_ptr(), out.data_ptr(), B, n, stream)
+    with on_device(X.device):
+        rc = fn(X.data_ptr(), dA.data_ptr(), out.data_ptr(), B, n, plan.np, plan.panel,
+                plan.mb, _raw_stream(X.device))
     check_launch(lib, "gj_tangent", rc, n)
     return out
 

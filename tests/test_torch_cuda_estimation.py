@@ -32,13 +32,21 @@ def _scaled_err(got, want):
     return float((got.double() - want).abs().max()) / float(want.abs().max())
 
 
+# path 14's shapes ((a): one or two fitted parameters at n = 71; (b): 10 or
+# 20 particle blocks and one or two c_e blocks), the timed large ones, and B
+# on both sides of the launch plan's regime threshold (B·⌈n/16⌉ against 132
+# SMs) at n = 17, 71, 128 and 169
 @pytest.mark.parametrize("B, n", [(1, 71), (2, 71), (1024, 71), (10240, 10), (1024, 30),
-                                  (3, 17), (5, 101), (2, 128), (3, 169)])
+                                  (3, 17), (5, 101), (2, 128), (3, 169),
+                                  (10, 10), (1, 30), (20, 10), (2, 30),
+                                  (66, 17), (67, 17), (26, 71), (27, 71), (16, 128), (17, 128),
+                                  (12, 169), (13, 169)])
 def test_gj_tangent_matches_plain_on_card(B, n):
     """K1ᵗ (dX = −X·dA·X) against its plain version: in float64 within 1e-10
     of the tangent's scale; in float32 its error against float64 at most 4×
     the plain float32 version's plus 1e-5 (K1's rule). Each launch counts
-    once, by n."""
+    once, by n, and takes the instance its launch plan names, with the
+    plan's shared memory and threads."""
     _need_card()
     rng = np.random.default_rng(B * 1000 + n)
     A = torch.as_tensor(rng.standard_normal((B, n, n)) + 20.0 * np.eye(n), device="cuda")
@@ -49,6 +57,8 @@ def test_gj_tangent_matches_plain_on_card(B, n):
     dtypes = ((torch.float64, torch.float32) if n <= gk.MAX_N[torch.float64]
               else (torch.float32,))
     for dtype in dtypes:
+        plan = gk.gj_tangent_plan(B, n, dtype)
+        assert gk.gj_tangent_block(plan, dtype) == (plan.smem, plan.threads), plan
         before = gk.LAUNCHES_BY_N["gj_tangent"].get(n, 0)
         got = gk.gj_tangent_hot(X.to(dtype), dA.to(dtype))
         assert gk.LAUNCHES_BY_N["gj_tangent"][n] == before + 1
@@ -61,18 +71,23 @@ def test_gj_tangent_matches_plain_on_card(B, n):
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_dchain_tangent_matches_plain_on_card(dtype):
+@pytest.mark.parametrize("B", [1, 2, 5, 1024])
+def test_dchain_tangent_matches_plain_on_card(B, dtype):
     """K3ᵗ on the permuted Schur cores of real Newton matrices (levels (20,
-    20)), the chain's outputs from K3, a tangent of the cores' pattern:
-    every output's tangent against the plain version's in float64 (1e-10 of
-    its scale), in float32 as close to the float64 tangent as the plain
-    float32 version (4× plus 1e-5)."""
+    20)) tiled to B cells, the chain's outputs from K3, a tangent of the
+    cores' pattern: every output's tangent against the plain version's in
+    float64 (1e-10 of its scale), in float32 as close to the float64
+    tangent as the plain float32 version (4× plus 1e-5); the plan's shared
+    memory is the compiled source's."""
     _need_card()
     _, Dp, sizes, _ = main_path.newton_matrices()
-    D = Dp.to("cuda").repeat(4, 1, 1)
+    D = Dp.to("cuda").repeat(-(-B // Dp.shape[0]), 1, 1)[:B].contiguous()
     dD = D * torch.as_tensor(np.random.default_rng(5).standard_normal(D.shape), device="cuda")
     ref = kd.dchain_tangent_plain(D, dD, kd.dchain_plain(D, sizes), sizes)
     D32, dD32 = D.to(dtype), dD.to(dtype)
+    n = D.shape[-1]
+    assert kd.dchain_tangent_smem_compiled(n, sizes, dtype) == kd.tangent_smem_bytes(
+        n, sizes, dtype)
     before = gk.LAUNCHES["dchain_tangent"]
     got = kd.dchain_tangent_hot(D32, dD32, kd.dchain_cuda(D32, sizes), sizes)
     assert gk.LAUNCHES["dchain_tangent"] == before + 1
